@@ -4,13 +4,13 @@ The reference's builder choice exists because tree quality buys traversal
 time (anim.cpp:62 picks SweepSAH + layout for the hot app). Here every
 quality tree is cut into a ClusterSet (accel.cuts) and fed to the SAME
 walk kernel; this harness measures, per builder, the full-frame time and
-the kernel's MEASURED executed block visits on the attached chip, plus
+the kernel's MEASURED executed block visits on the attached device, plus
 the host build cost (which amortizes outside the frame loop exactly like
 the reference's pre-loop build).
 
 Scenes: the run_all.py sweep cameras (bunny config 2, dragon config 3) at
 1080p smooth + shadows. Env: MESH=bunny|dragon|both, KINDS=csv filter.
-Writes/updates benchmarks/builder_ab.json.
+Writes/updates chiprun_out/builder_ab.json.
 
 NOTE optimize_node_layout is intentionally absent: it only reorders node
 memory, and the treelet cut consumes topology — the layout step is a
@@ -134,8 +134,10 @@ def main():
     if mesh_sel in ("dragon", "both"):
         scenes_.append("dragon")
 
-    out_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "builder_ab.json")
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, "builder_ab.json")
     results = []
     if os.path.exists(out_path):
         with open(out_path) as fh:

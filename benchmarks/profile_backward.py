@@ -20,7 +20,7 @@ bwd_full - bwd_eye    ~ cost of the vertex cotangent paths
 bwd_full - bwd_geom   ~ cost of the corner-normal accumulation alone
 
 Optionally writes an xplane trace of the full step (TRACE=1).
-Writes benchmarks/backward_profile.json.
+Writes chiprun_out/backward_profile.json.
 """
 
 import functools
@@ -164,8 +164,10 @@ def main():
                 float(step(vj))
         print("trace written:", out_dir)
 
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "backward_profile.json"), "w") as fh:
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "backward_profile.json"), "w") as fh:
         json.dump(results, fh, indent=1)
     return 0
 

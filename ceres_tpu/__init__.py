@@ -1,13 +1,14 @@
-"""ceres_tpu — a TPU-native differentiable ray tracer.
+"""ceres_tpu — a differentiable ray tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas reimagining of the capabilities of the CERES
-ray tracer (reference: /root/reference, C++17/OpenMP). Not a port: the
-acceleration structure is a flattened, HBM-resident set of morton-ordered
-triangle clusters (plus an LBVH), and the hot loop is a Pallas ray-wavefront
-megakernel in which Möller-Trumbore intersection is reformulated as an MXU
-matmul. Gradients flow to vertex positions, normals, and camera parameters.
+ray tracer (C++17/OpenMP). Not a port: the acceleration structure is a
+flattened, device-resident set of morton-ordered triangle clusters (plus an
+LBVH), and the hot loop is a Pallas walk kernel (Triton route on the GPU)
+over per-tile candidate lists, with Möller-Trumbore intersection factored
+into per-ray features times per-triangle weights. Gradients flow to vertex
+positions, normals, and camera parameters.
 
-Layer map (mirrors SURVEY.md §1, rebuilt TPU-first):
+Layer map (mirrors SURVEY.md §1):
   L4 apps/CLI      ceres_tpu.cli (render/anim drivers)
   L3 renderer      ceres_tpu.render (camera ray-gen, shading, shadow rays)
   L2 scene I/O     ceres_tpu.io (OBJ loading, vertex-normal averaging)

@@ -1,11 +1,10 @@
-"""Morton-ordered triangle clusters — the TPU acceleration structure.
+"""Morton-ordered triangle clusters — the acceleration structure.
 
 The reference accelerates rays with a binary BVH traversed by a per-ray
 stack (lib/bvh/bvh.hpp:18-97, single_ray_traverser.hpp:67-126) — divergent
-pointer-chasing that maps terribly onto a lockstep 8x128 vector unit. The
-TPU-native replacement flattens the hierarchy into *clusters*: fixed-size
-groups of C spatially-coherent triangles (C = 128 = one VPU lane row),
-formed by sorting triangle centroids along the Morton curve. Each cluster
+pointer-chasing that maps badly onto lockstep vector hardware. The
+replacement here flattens the hierarchy into *clusters*: fixed-size
+groups of C spatially-coherent triangles (C = 128 by default), formed by sorting triangle centroids along the Morton curve. Each cluster
 carries one AABB; a ray tile slab-tests a cluster's AABB (cheap, fully
 vectorized) and only on overlap runs the dense Möller-Trumbore matmul
 against all C triangles at once (ceres_tpu.ops.intersect docstring). This
@@ -27,8 +26,8 @@ import jax.numpy as jnp
 from ceres_tpu.accel import morton
 from ceres_tpu.models.mesh import TriangleSoup
 
-# Triangles per cluster: one f32 lane row. Env-overridable (read once at
-# import) for on-chip block-size sweeps; 128 is the measured optimum.
+# Triangles per cluster. Env-overridable (read once at import) for
+# block-size sweeps; 128 is not yet tuned on the H100.
 CLUSTER_SIZE = int(os.environ.get("CERES_CLUSTER_SIZE", 128))
 
 # The megakernel's winner table carries the original triangle id as an f32
@@ -279,14 +278,11 @@ def refit_clusters(clusters: ClusterSet, soup: TriangleSoup) -> ClusterSet:
 def _stack_packed_rows(rows, n_c, kp):
     """rows: list of K lists of 4 (N_c, C) channel planes -> (N_c, Kp, 4C).
 
-    Every arithmetic input is an (N_c, C) plane (triangles on lanes — the
-    dense layout), so building the packed weight tensor never touches an
-    (N_c, C, 3) array whose 3-vector would be lane-padded 42x. The only
-    relayout is the final stack into the kernel's (N_c, Kp, 4C) slab
-    layout (channel slabs side by side on lanes, K on sublanes,
-    zero-padded to Kp) — the same bytes _pack_weights used to emit via a
-    transpose of the vector-shaped build (measured ~4 ms/frame of
-    lane-padded cross products at 1080p).
+    Every arithmetic input is an (N_c, C) plane, so building the packed
+    weight tensor never touches an (N_c, C, 3) array. The only relayout
+    is the final stack into the kernel's (N_c, Kp, 4C) slab layout
+    (channel slabs side by side, K rows zero-padded to Kp) — the same
+    bytes _pack_weights emits from the vector-shaped build.
     """
     packed = [jnp.concatenate(r, axis=-1) for r in rows]       # (N_c, 4C)
     w = jnp.stack(packed, axis=1)                              # (N_c, K, 4C)

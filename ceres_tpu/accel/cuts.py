@@ -2,7 +2,7 @@
 
 The reference's whole point of builder choice is that its hot loop runs on
 the tree the chosen builder emitted (static.cpp:106 BinnedSahBuilder,
-anim.cpp:62 SweepSahBuilder). The TPU hot loop consumes ClusterSets
+anim.cpp:62 SweepSahBuilder). The walk kernel consumes ClusterSets
 (ceres_tpu.accel.clusters), so this module turns ANY built tree — the
 host golden builders' FlatBvh (SweepSAH / BinnedSAH / SBVH / reinsertion-
 optimized) or the PLOC tree — into a ClusterSet via the same maximal-
@@ -205,7 +205,7 @@ def clusters_from_flatbvh(soup: TriangleSoup, bvh: FlatBvh,
 
     Also derives the two-level walk's SUPER level from the same tree (a
     second maximal-subtree cut at <= megakernel._super_slots(n_c) fine
-    clusters per super) so beyond-SMEM scenes keep tree-tight super
+    clusters per super) so large scenes keep tree-tight super
     boxes with quality cuts too.
 
     NOTE: SBVH trees duplicate references (spatial splits); duplicates are
@@ -233,18 +233,15 @@ def build_clusters_quality(soup: TriangleSoup, builder: str = "sweep",
                            cluster_size: int = CLUSTER_SIZE) -> ClusterSet:
     """One-call QUALITY ClusterSet for static-geometry frame loops.
 
-    The round-5 on-chip A/B (benchmarks/builder_ab.json) measured every
-    builder's cut against the default on-device LBVH treelet cut at
-    1080p: quality cuts reduce executed kernel visits 14-32% and frame
-    time 7-24% (bunny 68.7 -> 74-76 Mrays/s, dragon 35.9 -> 45-47).
-    SweepSAH — the reference's own choice for its hot app
-    (include/anim.cpp:62) — is within 2% of the best (SBVH/reinsertion)
-    on both scenes at a fraction of their host build cost, so it is the
-    default here. The build is host-side NumPy (seconds; amortizes
+    Quality cuts schedule fewer executed kernel visits than the default
+    on-device LBVH treelet cut (the visit counts do not depend on the
+    device; their H100 frame times are not measured yet). SweepSAH — the
+    reference's own choice for its hot app (include/anim.cpp:62) — is
+    the default here. The build is host-side NumPy (seconds; amortizes
     outside the frame loop exactly like the reference's pre-loop
     build); keep `build_clusters_treelet` for jittable in-graph builds
-    (per-step rebuilds, deforming geometry, beyond-SMEM scenes where
-    the two-level walk needs the stored super cut).
+    (per-step rebuilds, deforming geometry, large scenes where the
+    two-level walk uses the stored super cut).
 
     ``builder``: sweep | binned (native C++ when available) | sbvh |
     ploc | reinsert (SweepSAH + parallel reinsertion).

@@ -6,7 +6,7 @@ its flattened node layout (bvh.hpp:18-97), rebuilt from scratch in NumPy.
 Role mirrors SURVEY.md §7.3: these are the *quality/golden* builders — the
 oracle that traversal tests and SAH-quality assertions compare against —
 while the device-side structures (ceres_tpu.accel.lbvh / clusters) do the
-actual TPU work. The recursion here is plain Python (no OpenMP task pool
+actual device work. The recursion here is plain Python (no OpenMP task pool
 to replicate; XLA owns on-device parallelism).
 
 Flat layout semantics preserved exactly:

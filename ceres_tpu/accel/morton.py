@@ -6,7 +6,7 @@ via log-step mask splits, plus the world->grid quantization the
 MortonEncoder performs (grid dimension 2^(bits/3), centers clamped to the
 grid). The radix sort the reference pairs with this
 (lib/bvh/radix_sort.hpp) is replaced wholesale by ``jnp.argsort`` /
-``jax.lax.sort`` — XLA's sort is the TPU-native parallel primitive.
+``jax.lax.sort`` — XLA's sort is the device's parallel primitive.
 """
 
 from __future__ import annotations

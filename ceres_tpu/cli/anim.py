@@ -5,9 +5,12 @@ about +y (anim.cpp:77-89), renders, and writes all frames as an animated
 file via Magick++ (default ``render.mp4``, anim.cpp:112-127). Here the
 frames are *batched*: keyframe Transform tracks go through
 render_frames_sharded, sharding (frames x rows) across every available
-device, and the video is encoded with OpenCV (.mp4) or imageio (.gif).
+device. The default output is a directory of PNG frames, which needs no
+video encoder; ``.mp4`` (OpenCV) and ``.gif`` (imageio) are optional and
+checked for before anything renders.
 
 Usage:
+    python -m ceres_tpu.cli.anim data/bunny.obj -o frames/ --frames 60
     python -m ceres_tpu.cli.anim data/bunny.obj -o render.mp4 --frames 60
 """
 
@@ -22,10 +25,13 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ceres-anim",
-        description="TPU-native turntable animation of an OBJ mesh.")
+        description="Turntable animation of an OBJ mesh, ray traced "
+                    "with JAX.")
     p.add_argument("input", help="OBJ mesh path")
-    p.add_argument("-o", "--output", default="render.mp4",
-                   help="output video (.mp4 or .gif) [render.mp4]")
+    p.add_argument("-o", "--output", default="render_frames",
+                   help="output: a directory of PNG frames, or a video "
+                        "(.mp4 needs opencv-python, .gif needs imageio) "
+                        "[render_frames]")
     p.add_argument("--frames", type=int, default=60,
                    help="number of turntable frames [60]")
     p.add_argument("--fps", type=int, default=24)
@@ -52,16 +58,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="acceleration-structure builder. Frame loops "
                         "amortize a host-side QUALITY build best: sweep "
                         "(the reference anim app's own SweepSAH choice, "
-                        "anim.cpp:62) renders 7-24%% faster per frame "
-                        "(benchmarks/builder_ab.json)")
+                        "anim.cpp:62), at the cost of a host-side build")
     p.add_argument("--batch", type=int, default=None,
-                   help="frames rendered per dispatch (default 4 per "
-                        "frames-axis shard: batching amortizes per-frame "
-                        "fixed cost, measured 82.5 vs 67 Mrays/s at 1080p)")
+                   help="frames rendered per dispatch (default 4: "
+                        "batching amortizes per-frame fixed cost)")
     p.add_argument("-d", "--double", action="store_true",
                    help="render in float64 — the reference anim app's one "
                         "real flag (anim.cpp:145-158). On the megakernel "
-                        "backend the search runs the f32 TPU datapath and "
+                        "backend the search runs the f32 walk kernel and "
                         "all values (t/u/v, shading) are recomputed in f64 "
                         "at the winners; use --backend bruteforce for the "
                         "all-f64 O(R x T) oracle")
@@ -74,28 +78,50 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _write_video(path: str, frames_u8, fps: int) -> None:
-    if path.endswith(".gif"):
-        import imageio
+_VIDEO_ENCODERS = {".mp4": ("cv2", "opencv-python"),
+                   ".gif": ("imageio", "imageio")}
 
-        imageio.mimsave(path, list(frames_u8), duration=1000.0 / fps, loop=0)
-    elif path.endswith(".mp4"):
-        import cv2
 
+def _video_encoder(path: str):
+    """The encoder module for a video ``path``; None for a frame
+    directory. Fails before any rendering when the encoder is missing."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in _VIDEO_ENCODERS:
+        if ext:
+            raise SystemExit(f"unsupported output {path!r}: use a directory "
+                             f"of PNG frames, .mp4 or .gif")
+        return None
+    module, package = _VIDEO_ENCODERS[ext]
+    try:
+        return __import__(module)
+    except ImportError:
+        raise SystemExit(f"writing {ext} needs the {package} package, which "
+                         f"is not installed; write PNG frames to a "
+                         f"directory instead (-o DIR)") from None
+
+
+def _write_video(path: str, encoder, frames_u8, fps: int) -> None:
+    if path.lower().endswith(".gif"):
+        encoder.mimsave(path, list(frames_u8), duration=1000.0 / fps, loop=0)
+    else:
+        cv2 = encoder
         h, w = frames_u8[0].shape[:2]
         vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
                              (w, h))
         for f in frames_u8:
             vw.write(f[:, :, ::-1])  # RGB -> BGR
         vw.release()
-    else:
-        raise ValueError(f"unsupported video format: {path}")
 
 
 def run(args) -> int:
     import jax
     import numpy as np
 
+    encoder = _video_encoder(args.output)
+    if encoder is None and not args.save_frames:
+        # A frame directory IS the incremental checkpoint: frames land as
+        # soon as each batch renders, and a restart resumes.
+        args.save_frames = args.output
     if args.double:
         jax.config.update("jax_enable_x64", True)
 
@@ -103,7 +129,10 @@ def run(args) -> int:
     from ceres_tpu.models.camera import Camera
     from ceres_tpu.parallel.sharded import (
         device_mesh, render_frames_sharded, turntable_transforms)
-    from ceres_tpu.utils.image import to_uint8, write_png
+    from ceres_tpu.utils.image import read_png, to_uint8, write_png
+    from ceres_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     t0 = time.perf_counter()
     vertices, faces = load_obj(args.input)
@@ -179,16 +208,15 @@ def run(args) -> int:
         print(f"Resumed: {skipped} frame(s) already in {args.save_frames}")
     if args.save_frames:
         # Fill skipped frames back in from disk for the video assembly.
-        import imageio.v3 as iio
-
         for k in range(args.frames):
             if frames_u8[k] is None:
-                frames_u8[k] = np.asarray(iio.imread(_frame_path(k)))[..., :3]
+                frames_u8[k] = read_png(_frame_path(k))
 
     print(f"Total Rays: {total_rays}")  # anim.cpp:129
     print(f"Total render: {dt:.2f}s on {n_dev} device(s) "
           f"({total_rays / dt / 1e6:.1f} Mrays/s)")
-    _write_video(args.output, frames_u8, args.fps)
+    if encoder is not None:
+        _write_video(args.output, encoder, frames_u8, args.fps)
     print(f"Wrote {args.output} ({args.frames} frames)")
     return 0
 

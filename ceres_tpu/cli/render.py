@@ -22,7 +22,8 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ceres-render",
-        description="TPU-native single-frame ray-traced render of an OBJ mesh.")
+        description="Single-frame render of an OBJ mesh, ray traced "
+                    "with JAX.")
     p.add_argument("input", help="OBJ mesh path")
     p.add_argument("-o", "--output", default="render.png",
                    help="output image (.png or .ppm) [render.png]")
@@ -56,8 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "host-side QUALITY builders cut into the same "
                         "structure (the reference's builder menu, e.g. "
                         "sweep = its anim app's SweepSAH): slower to "
-                        "build, 7-24%% faster per frame "
-                        "(benchmarks/builder_ab.json)")
+                        "build, fewer block visits per frame")
     p.add_argument("--no-shadows", action="store_true",
                    help="skip shadow rays")
     p.add_argument("--sphere", action="append", nargs=4, type=float,
@@ -69,11 +69,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard rays across all available devices")
     p.add_argument("--primitive-sharded", action="store_true",
                    help="shard GEOMETRY across devices instead of rays "
-                        "(for scenes exceeding one chip's memory)")
+                        "(for scenes exceeding one device's memory)")
     p.add_argument("-d", "--double", action="store_true",
                    help="render in float64 (the reference's '-d' Scalar "
                         "axis, anim.cpp:145-158). On the megakernel "
-                        "backend the search runs the f32 TPU datapath and "
+                        "backend the search runs the f32 walk kernel and "
                         "all values are recomputed in f64 at the winners; "
                         "use --backend bruteforce for the all-f64 oracle")
     p.add_argument("--d-exact", action="store_true",
@@ -100,6 +100,9 @@ def run(args) -> int:
     from ceres_tpu.models.transform import rotate_vertices_about_axis
     from ceres_tpu.render.renderer import render
     from ceres_tpu.utils.image import write_image
+    from ceres_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     t0 = time.perf_counter()
     vertices, faces = load_obj(args.input)

@@ -81,8 +81,7 @@ def camera_ray_columns(camera: Camera, width: int, height: int):
     """Normalized view directions as 3 separate (height, width) planes.
 
     The structure-of-arrays form of :func:`camera_rays`: every op is a
-    dense (H, W) op, where the (H, W, 3) form puts the 3-vector on the
-    128-lane axis (42x VPU waste on the normalize). Same math, same
+    dense (H, W) op, with no minor dimension of size 3. Same math, same
     pixel-center convention (render.hpp:105-113).
     """
     d, iu, iv = camera_basis(camera, width, height)

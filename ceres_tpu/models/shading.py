@@ -90,10 +90,9 @@ def flat_shading(normal: jax.Array) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# Column (structure-of-arrays) forms — the TPU fast path. Mathematically
-# identical to the (..., 3) forms above, but every op is a flat (R,) vector
-# op: reductions over a size-3 minor axis pad 3 -> 128 VPU lanes and waste
-# 42x (measured ~35 ms/frame at 1080p).
+# Column (structure-of-arrays) forms — the megakernel pipeline's path.
+# Mathematically identical to the (..., 3) forms above, but every op is a
+# flat (R,) vector op, with no reduction over a size-3 minor axis.
 # ---------------------------------------------------------------------------
 
 def _dot3(a, b):
@@ -127,7 +126,7 @@ def smooth_shading_cols(sun_line, corner_cols, view, u, v,
 
     sun_line/view: 3-tuples of (R,); corner_cols: sequence of 9 (R,)
     corner-normal columns [n0 | n1 | n2] (per-column winner-gather
-    payload — a packed (R, 9) row form would be lane-padded 9 -> 128).
+    payload).
     Returns 3-tuple of (R,) RGB columns. Same corner-weight convention as
     :func:`smooth_shading` (w, u, v) — see that docstring for the
     documented deviation from render.hpp:76-83 and the

@@ -68,7 +68,7 @@ class Transform:
 
 
 def transform_mesh_vertices(transform: Transform, vertices: jax.Array) -> jax.Array:
-    """Apply a Transform to a (V, 3) vertex array (one fused matmul on TPU).
+    """Apply a Transform to a (V, 3) vertex array (one fused matmul).
 
     The reference's transform_triangles (transform.hpp:120-129) rebuilds each
     triangle record; here the soup is re-derived from transformed vertices by

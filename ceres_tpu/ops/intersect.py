@@ -1,4 +1,4 @@
-"""Möller-Trumbore ray-triangle intersection as a matmul (the MXU form).
+"""Möller-Trumbore ray-triangle intersection as a matmul.
 
 The reference evaluates MT per (ray, triangle) pair with cross products
 (lib/bvh/triangle.hpp:95-115):
@@ -7,7 +7,7 @@ The reference evaluates MT per (ray, triangle) pair with cross products
     u = (r . e2) / det;  v = (r . e1) / det;  t = (n . c) / det
     accept iff u >= 0, v >= 0, 1-u-v >= 0 (NaN-safe) and tmin <= t <= tmax.
 
-On TPU we restructure: every numerator is a *bilinear* form in per-ray and
+Here every numerator is a *bilinear* form in per-ray and
 per-triangle quantities, because r . e2 = d.(p0 x e2) - (d x o).e2 and
 n . c = n.p0 - n.o. So with the per-ray feature vector
 
@@ -15,9 +15,8 @@ n . c = n.p0 - n.o. So with the per-ray feature vector
 
 and a per-triangle weight matrix W (10, 4) with output channels
 (u_num, v_num, det, t_num), the entire MT numerator set for R rays x T
-triangles is ONE matmul  (R,10) @ (10,4T)  — 80 FLOPs/pair on the MXU
-instead of scalar cross products on the VPU. The divisions and accept
-masks are cheap elementwise epilogue.
+triangles is ONE matmul  (R,10) @ (10,4T)  — 80 FLOPs/pair, with the
+divisions and accept masks as an elementwise epilogue.
 
 Two refinements:
   * Common-origin rays (all primary rays share the camera eye): shift the
@@ -41,10 +40,23 @@ import jax.numpy as jnp
 
 from ceres_tpu.models.mesh import TriangleSoup
 
-# Matmul precision for intersection tests: float32 throughout. On TPU the
-# MXU natively multiplies bf16, so HIGHEST requests the multi-pass fp32
-# decomposition — required, bf16 is far too coarse for hit distances.
+# Matmul precision for intersection tests: float32 throughout. HIGHEST
+# keeps the products in true f32 (never TF32 or bf16 passes, which are
+# far too coarse for hit distances).
 MT_PRECISION = jax.lax.Precision.HIGHEST
+
+# Bound on the elements of one (chunk, 4T) numerator slab of the dense
+# test: large scenes get fewer rays per chunk so a chunk fits in memory.
+_SLAB_ELEMS = 1 << 28
+
+
+def _auto_chunk(T: int) -> int:
+    """Rays per dense chunk: the largest power of two <= 2048 whose
+    (chunk, 4T) numerator slab stays within _SLAB_ELEMS."""
+    c = 2048
+    while c > 1 and c * 4 * T > _SLAB_ELEMS:
+        c //= 2
+    return c
 
 
 class Hit(NamedTuple):
@@ -168,7 +180,11 @@ def _closest_hit_jit(features, weights, tmin, tmax, chunk):
     pad = (-R) % chunk
     feats = jnp.pad(features, ((0, pad), (0, 0)))
     feats = feats.reshape(-1, chunk, features.shape[-1])
-    hits = jax.lax.map(lambda f: _closest_chunk(f, weights, tmin, tmax), feats)
+    # Rematerialized per chunk: the backward pass then holds one chunk's
+    # (chunk, T) residuals at a time instead of every chunk's.
+    hits = jax.lax.map(
+        jax.checkpoint(lambda f: _closest_chunk(f, weights, tmin, tmax)),
+        feats)
     return jax.tree.map(lambda x: x.reshape(-1)[:R], hits)
 
 
@@ -177,14 +193,15 @@ def closest_hit_bruteforce(
     weights: jax.Array,
     tmin=0.0,
     tmax=jnp.inf,
-    chunk: int = 2048,
+    chunk: Optional[int] = None,
 ) -> Hit:
     """Closest hit of R rays against ALL T triangles (no acceleration).
 
     The mid-level correctness/differentiability reference: chunked over rays
-    to bound the (chunk, T) live set. Gradients flow to ``features`` and
-    ``weights`` through the selected winners.
+    to bound the (chunk, T) live set (default _auto_chunk(T)). Gradients
+    flow to ``features`` and ``weights`` through the selected winners.
     """
+    chunk = chunk or _auto_chunk(weights.shape[0])
     dt = features.dtype
     tmin = jnp.asarray(tmin, dt)
     tmax = jnp.asarray(jnp.minimum(jnp.asarray(tmax, dt), jnp.finfo(dt).max), dt)
@@ -210,9 +227,10 @@ def any_hit_bruteforce(
     weights: jax.Array,
     tmin=0.0,
     tmax=jnp.inf,
-    chunk: int = 2048,
+    chunk: Optional[int] = None,
 ) -> jax.Array:
     """Occlusion test: (R,) bool, True where a ray hits any triangle."""
+    chunk = chunk or _auto_chunk(weights.shape[0])
     dt = features.dtype
     tmin = jnp.asarray(tmin, dt)
     tmax = jnp.asarray(jnp.minimum(jnp.asarray(tmax, dt), jnp.finfo(dt).max), dt)

@@ -1,8 +1,8 @@
 """Pallas ray-traversal megakernel: per-tile front-to-back cluster walk.
 
-TPU replacement for the reference's per-ray BVH traversal hot loop
-(lib/bvh/single_ray_traverser.hpp:67-126 + triangle.hpp:95-115), inverted
-for a lockstep vector machine and split into two phases:
+The replacement for the reference's per-ray BVH traversal hot loop
+(lib/bvh/single_ray_traverser.hpp:67-126 + triangle.hpp:95-115), split
+into two phases:
 
   1. **Interval culling prepass (pure JAX).** Rays arrive in spatially
      coherent 512-ray pixel-block tiles (ceres_tpu.utils.tiling). Each
@@ -15,31 +15,25 @@ for a lockstep vector machine and split into two phases:
      and sorted FRONT TO BACK per tile with a single payload-free
      `jnp.sort` (the tile analog of descend-nearer-first,
      single_ray_traverser.hpp:95-113).
-  2. **Walk kernel (Pallas).** ONE grid step per ray tile: a while-loop
-     walks that tile's sorted candidate list and EXITS as soon as the
-     next entry bound exceeds the tile's prune — max over rays of
+  2. **Walk kernel (Pallas, Triton route).** ONE program per ray tile: a
+     while-loop walks that tile's sorted candidate list and EXITS as soon
+     as the next entry bound exceeds the tile's prune — max over rays of
      min(closest-hit-so-far, scene-root exit) — i.e. the traverser's
      tmax-shrink pruning (single_ray_traverser.hpp:59,95-113) vectorized
      per tile, with the background-pixel worst case capped at the root
-     exit. Each visit evaluates all R x C x 4 MT numerators as ONE
-     (Kp, R)^T @ (Kp, 4C) `dot_general` on the MXU at
-     Precision.HIGHEST (multi-pass bf16 — near-f32, not bit-exact; the
-     winner (t, u, v) are recomputed in plain f32 JAX anyway). K is
-     thin (8/128 of the systolic depth) but the MXU is otherwise idle,
-     so even at low utilization it beats burning VPU issue slots; the
-     accept is a branch-free sign test. The winner epilogue packs
-     (t, lane id) into ONE int32 key
-     (monotone bitcast; the low ceil(log2 C) mantissa bits carry the
-     lane index) so per-visit selection is a single lane-axis min and a
-     few (R, 1) column ops — no sublane<->lane relayouts, which cost 3x
-     the whole MT math in the naive two-reduction form. All comparisons
+     exit. Each visit evaluates the R x C x 4 Möller-Trumbore numerators
+     as f32 FMAs over the non-zero feature rows only, in chunks of
+     _CHUNK_TRIS triangles so the (rays x chunk) block stays in
+     registers, and reduces each chunk at once to one packed (t, slot)
+     int32 key per ray (monotone bitcast; the low ceil(log2 C) mantissa
+     bits carry the slot), so the per-visit selection is one row min.
+     The accept is a branch-free sign test on exact f32 numerators (no
+     tensor cores: TF32 would flip accepts at edges). All comparisons
      (t, tcap, entry, prune) stay in int-key space; the prune is padded
-     +_PRUNE_PAD bits (~ *(1+5e-4): mantissa clearing + approx-reciprocal
-     slack) so the understated t keys never cause a
-     non-conservative early exit. Weight slabs are VMEM-resident for
-     small scenes and double-buffered HBM->VMEM DMA (driven by the
-     candidate list, prefetching visit k+1 during visit k) beyond
-     _RESIDENT_W_BYTES — scene size is unbounded.
+     +_PRUNE_PAD bits so the understated t keys never cause a
+     non-conservative early exit. Weights, keys and tables are read from
+     global memory by the program's own loads (the scene's working set
+     is served by L2); scene size is bounded only by device memory.
 
 Gradients flow with NO custom VJP: the kernel only *finds* winner ids
 (integers, detached by construction — the standard differentiable-
@@ -62,64 +56,45 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ceres_tpu.accel import clusters as cl
 from ceres_tpu.models.mesh import TriangleSoup
 from ceres_tpu.ops.intersect import Hit
 
-# Rays per culling tile (= one 16 x 32 pixel block) and tiles walked per
-# Pallas grid step (fixed-cost amortizer). Env-overridable tuning knobs
-# (read once at import) for on-chip sweeps; the defaults are the measured
-# optimum on bunny/dragon 1080p.
+# Rays per culling tile (= one 16 x 32 pixel block) and per walk program.
+# Env-overridable (read once at import) for sweeps.
 TILE = int(os.environ.get("CERES_TILE", 512))
-_GROUP_TILES = int(os.environ.get("CERES_GROUP_TILES", 8))
+# Triangles per register block inside a cluster visit, and warps per
+# walk program. Powers of two; the cluster width must be a multiple.
+_CHUNK_TRIS = 4
+_NUM_WARPS = 8
 
 _BIG = 3.0e37      # "no hit yet" sentinel, finite to keep slab math NaN-free
 _VALID_CUT = 1.0e37  # entries >= this are padding, never real candidates
 _INV_CLAMP = 1e30
 _ULP_PAD = 4e-6       # conservative slab widening (RobustNodeIntersector,
                       # node_intersectors.hpp:54-79: never cull a true hit)
-_DEST_EPS = 4e-6      # t-window margin for common-destination occlusion
-                      # (self-shadow guard at the receiving point)
-# Weight tensors up to this size stay VMEM-resident for the whole kernel;
-# larger scenes switch to the double-buffered HBM streaming path.
-_RESIDENT_W_BYTES = 8 << 20
 
 # Above this many 128-triangle blocks the walk goes TWO-LEVEL: the dense
 # culling prepass + sort runs over SUPERS of up to S member blocks, and
-# the kernel gates each member block with an in-kernel interval test
-# of the tile hull against the block's box (one vectorized slab test +
-# one gate-bitmask reduce per super visit; culled blocks skip their MT
-# matmul via lax.cond). Supers come from the LBVH's OWN upper levels
-# when available (ClusterSet.super_first — a second treelet cut at <= S
-# fine clusters per super, lbvh.super_cut), so a super's box is a real
-# tree-node box; the fallback groups S consecutive blocks (treelet
-# order is spatially coherent, but such unions are loose wherever the
-# morton curve jumps). S grows with the scene so the prepass stays
-# bounded at ~_SUPER_TARGET supers — the O(tiles x N_c) prepass ceiling
-# (and its 134 MB key tensor at ~1M triangles) becomes O(tiles x 1024)
-# regardless of scene size. Below the threshold the flat single-level
-# walk is unchanged, and measured FASTER wherever it compiles (dragon's
-# 368 blocks: 2x; a 318k-tri subdivided bunny at 4968 blocks: 275 vs
-# 393 ms/frame with r4's consecutive-block supers) — the in-kernel
-# gating carries per-super overhead the prepass savings don't repay at
-# these sizes. The flat walk's hard wall
-# is SMEM: its double-buffered per-group key window (G x n_c x 4 B x 2)
-# exceeds the 1 MB budget at 16384 blocks (a 1.27M-triangle scene fails
-# to compile flat; the two-level walk renders it). The threshold sits
-# just under that wall with margin for the counts/hull windows — and is
-# also near the flat walk's QUALITY wall: its packed keys clear
-# ceil(log2 n_c) mantissa bits, so at 14.4k blocks entries quantize to
-# a ~2e-3 relative grid and boundary visits explode (measured round 5,
-# 1.27M tris on a 14,367-block quality cut: flat 837 ms / 250,924
-# executed visits vs two-level 512 ms / 151,674 — the in-super priority
-# walk gates on FULL-precision entries from bbox_ref instead).
+# the kernel gates each member block with an in-kernel interval test of
+# the tile hull against the block's box (one vectorized slab test per
+# super visit), then visits the passing members front to back by their
+# FULL-precision entry bounds (an in-super priority walk). Supers come
+# from the LBVH's OWN upper levels when available (ClusterSet.super_first
+# — a second treelet cut at <= S fine clusters per super,
+# lbvh.super_cut), so a super's box is a real tree-node box; the
+# fallback groups S consecutive blocks. S grows with the scene so the
+# prepass stays bounded at ~_SUPER_TARGET supers: the O(tiles x N_c)
+# prepass and its key tensor become O(tiles x 1024) regardless of scene
+# size. The flat walk's own limit is key quality: its packed keys clear
+# ceil(log2 n_c) mantissa bits, so at ~14k blocks entries quantize to a
+# ~2e-3 relative grid and boundary visits grow, while the priority walk
+# gates members on full-precision entries. Where the two walks cross
+# over on the H100 is not measured; the threshold is kept from the
+# walk's first platform (CERES_HIER_MIN overrides it for probes).
 _HIER_MIN_CLUSTERS = int(os.environ.get("CERES_HIER_MIN", 12288))
-# Shadow-wavefront receiver regrouping (see any_hit_to_point):
-# "auto" = on for scenes past the two-level threshold, "1"/"0" force.
-_SHADOW_REGROUP = os.environ.get("CERES_SHADOW_REGROUP", "0")
-_REGROUP_TILE = int(os.environ.get("CERES_REGROUP_TILE", 128))
 _SUPER_TARGET = 1024
 _SUPER_MAX = 32   # gate bitmask lives in one int32
 
@@ -142,14 +117,12 @@ def _super_factor(n_c: int) -> int:
 # Prune-key slack, in int32 ulps of the f32 bit pattern (~3e-5
 # relative). The walk's early exit is only conservative if the padded
 # prune covers every way the carried t keys UNDERSTATE the true hit
-# distances — here only the cleared low mantissa bits (127 ulp; the
-# winner t uses the EXACT reciprocal, see winner_update). Two measured
-# dead ends are documented by this constant's history: an approximate
-# reciprocal (error ~2^-16) made 256 ulp non-conservative (winner
-# misses ~1e-3 relative on near-tie soups — the pad must dominate every
-# understatement source), and widening to 4096 ulp cost a real 17% of
-# frame time in extra boundary visits while the approx reciprocal
-# itself saved nothing measurable.
+# distances: the cleared low slot bits of the winner key (at most 127
+# ulp for 128-triangle clusters) plus the error of the f32 divide that
+# forms t (the Triton route emits div.full.f32, at most 2 ulp; the
+# interpreter divides exactly) — 129 ulp in all, inside 256. Any new
+# approximation in the winner t must fit in what is left, or widen this
+# (wider pads cost extra boundary visits).
 _PRUNE_PAD = 256
 
 # "No hit" sentinel whose low mantissa bits are zero (survives the winner
@@ -157,15 +130,28 @@ _PRUNE_PAD = 256
 _BIG_CLEAN_I = int(np.float32(_BIG).view(np.int32) & ~np.int32(127))
 _BIG_CLEAN = float(np.int32(_BIG_CLEAN_I).view(np.float32))
 _NEG_I = int(np.float32(-1.0).view(np.int32))  # bits of -1.0 (prune killer)
+_IMAX = 0x7FFFFFFF
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+def _walk_interpret(platform: str | None = None) -> bool:
+    """How the walk kernel runs on ``platform`` (default: JAX's backend).
+
+    Compiled Triton on "gpu"; the Pallas interpreter on "cpu" (the test
+    path). Any other platform has no route: the kernel never runs
+    interpreted on an accelerator.
+    """
+    platform = platform or jax.default_backend()
+    if platform == "gpu":
+        return False
+    if platform == "cpu":
+        return True
+    raise ValueError(f"the walk kernel runs on 'gpu' (Triton) or 'cpu' "
+                     f"(interpreted), not on {platform!r}")
 
 
 def _safe_inverse(d):
     """Sign-preserving epsilon-clamped 1/d (reference vector.hpp:69-74)."""
-    sign = jnp.where(d >= 0, 1.0, -1.0)
+    sign = jnp.where(d >= 0, 1.0, -1.0).astype(d.dtype)
     return jnp.where(jnp.abs(d) < 1e-30, sign * _INV_CLAMP, 1.0 / d)
 
 
@@ -186,11 +172,9 @@ def _interval_entry(lo, hi, dlo, dhi, olo=None, ohi=None):
     construction — pruning in the kernel is against per-ray exact hit
     distances, so looseness only costs scheduled (skippable) visits.
 
-    LAYOUT: every tensor op is (n_t, N_c)-shaped — tiles on sublanes,
-    clusters on lanes — with the xyz axis UNROLLED in Python. Putting the
-    3-vector on the lane axis instead (the naive (n_t, N_c, 3) form) pads
-    3 -> 128 lanes and wastes 42x of the VPU; measured 70 ms/frame vs ~2.
-    An origin hull folds into the box corners (box - [olo, ohi] is just a
+    Every tensor op is (n_t, N_c)-shaped, with the xyz axis UNROLLED in
+    Python (structure-of-arrays: no minor dimension of size 3). An
+    origin hull folds into the box corners (box - [olo, ohi] is just a
     wider box), so generic rays cost the same 4 corner products per axis
     as common-origin rays.
     """
@@ -227,9 +211,8 @@ def _interval_entry(lo, hi, dlo, dhi, olo=None, ohi=None):
 def _hull(cols, alive):
     """3-tuple of (n_t, R) ray columns -> per-tile (lo, hi) hulls (n_t, 3).
 
-    Axis-unrolled so every reduction is (n_t, R)-shaped (R on lanes); the
-    naive masked min/max over (n_t, R, 3) puts the 3-vector on the lane
-    axis (3 -> 128 padding, 42x VPU waste)."""
+    Axis-unrolled so every reduction is (n_t, R)-shaped (no minor
+    dimension of size 3)."""
     los = []
     his = []
     for a in range(3):
@@ -303,7 +286,7 @@ def _super_members(lo, hi, first, S):
     runs). Returns (super_lo, super_hi — the (n_s, 3) union boxes for
     the phase-1 prepass, empty-aware) and the (n_s, 8, S) member-box
     tensor the kernel gates with: rows 0-2 lo.xyz, 3-5 hi.xyz, 6 the
-    empty flag, 7 pad (sublane-aligned). A super's union box equals the
+    empty flag, 7 pad. A super's union box equals the
     covering tree node's real box (the node box IS the union of its
     fine clusters' boxes).
     """
@@ -364,8 +347,7 @@ def _ray_tcap(root_lo, root_hi, origin_cols, dir_cols):
     common-origin wavefront with pre-shifted boxes.
 
     Rays come in COLUMN form (3 separate (R,) arrays): every op here is a
-    flat (R,) vector op — an (R, 3) form puts the 3-vector on the lane
-    axis and wastes 42x of the VPU.
+    flat (R,) vector op.
     """
     tn = None
     tf = None
@@ -391,38 +373,49 @@ def _ray_tcap(root_lo, root_hi, origin_cols, dir_cols):
 
 
 # ---------------------------------------------------------------------------
-# Phase 2: the Pallas walk kernel
+# Phase 2: the walk kernel (Pallas, Triton route)
 # ---------------------------------------------------------------------------
 
-def _make_walk_kernel(c_size: int, n_c: int, R: int, G: int,
-                      tcap_col: int, mode: str, stream: bool, S: int = 1,
-                      window: bool = False):
-    """One grid step per GROUP of G ray tiles: walk each tile's sorted
-    candidate list FRONT TO BACK, early-exiting on the tile prune (see
-    module docstring). Grouping amortizes Mosaic's fixed per-grid-step
-    cost (~2 us measured: block bookkeeping + DMA descriptor setup) over
-    G tiles — at 1080p that fixed cost alone was ~8 ms/frame per
-    wavefront with one tile per step.
+# Feature rows that carry non-zero weights in each numerator channel
+# (u, v, det, t), keyed by the feature count K — the packed layouts of
+# clusters.cluster_weights_common_origin_packed (rows [d, 1]) and
+# cluster_weights_generic_packed (rows [d, d x o, o, 1]). The kernel
+# forms only these products.
+_MT_ROWS = {
+    4: ((0, 1, 2), (0, 1, 2), (0, 1, 2), (3,)),
+    10: ((0, 1, 2, 3, 4, 5), (0, 1, 2, 3, 4, 5), (0, 1, 2), (6, 7, 8, 9)),
+}
 
-    Closest mode carries per-ray (t-key, packed winner id) columns; any-hit
-    mode carries an occlusion flag column. All scalar comparisons happen on
-    int32 f32-bit-patterns (order-isomorphic for values >= 0; Mosaic has no
-    scalar bitcast). ``stream=True`` swaps the VMEM-resident weight tensor
-    for double-buffered HBM DMA driven by the candidate list.
+
+def _make_walk_kernel(c_size: int, n_c: int, R: int, K: int, mode: str,
+                      S: int, window: bool, chunk: int):
+    """One program per ray tile: walk the tile's sorted candidate list
+    FRONT TO BACK, early-exiting on the tile prune (see module docstring).
+
+    Closest mode carries per-ray (t-key, packed winner id) vectors;
+    any-hit modes carry an occlusion flag vector. All prune comparisons
+    happen on int32 f32-bit-patterns (order-isomorphic for values >= 0).
+    Each program counts its executed block visits into its own slot of
+    the ``steps`` output (programs run in no order, so nothing carries
+    across them).
 
     ``S > 1`` is the TWO-LEVEL walk: each candidate is a SUPER of S
     blocks; ``n_c`` then counts supers. Per super visit the kernel
     interval-tests the tile hull (hull_ref scalars) against the S member
-    block boxes (bbox_ref, one vectorized slab test), reduces the passing
-    set to ONE gate bitmask scalar, and runs each passing block's MT
-    matmul under lax.cond — culled blocks cost ~nothing. The per-visit
-    gate is exactly the flat prepass's conservative test, deferred into
-    the kernel so the dense prepass + sort stay O(tiles x supers).
+    block boxes (bbox_ref, one vectorized slab test) and then runs an
+    in-super PRIORITY walk: it repeatedly extracts the unvisited member
+    with the smallest full-precision entry bound (an int32 bitmask of
+    unvisited slots) and visits it while that bound is under the live
+    prune, so members are visited front to back and the prune converges
+    as fast as in the flat walk.
     """
+    rows = _MT_ROWS[K]
+    used_rows = sorted(set(sum(rows, ())))
     ibits = max(1, (c_size - 1).bit_length())
     imask = (1 << ibits) - 1
     cmask = (1 << _cid_bits(n_c)) - 1
-    any_hit_mode = mode in ("any", "any_dest")
+    n_chunks = c_size // chunk
+    any_hit_mode = mode in ("any", "any_seg")
     hier = S > 1
 
     def kernel(*refs):
@@ -434,391 +427,203 @@ def _make_walk_kernel(c_size: int, n_c: int, R: int, G: int,
         hull_ref = refs.pop(0) if hier else None
         bbox_ref = refs.pop(0) if hier else None
         first_ref = refs.pop(0) if hier else None
-        w_ref = refs.pop(0)          # w_hbm when streaming
+        w_ref = refs.pop(0)
         out_ref = refs.pop(0)
         steps_ref = refs.pop(0)
-        wbuf = refs.pop(0) if stream else None
-        sem = refs.pop(0) if stream else None
         i = pl.program_id(0)
+        count = cnt_ref[i]
 
-        @pl.when(i == 0)
-        def _():
-            steps_ref[0, 0] = 0
+        # Feature block is CHANNEL-FIRST (Kp, n_tiles * R): one contiguous
+        # (R,) row per feature. The root-exit cap rides row K; as int bits
+        # it joins the key-space comparisons directly. Dead rays carry
+        # tcap = -1.0 (negative bits) and never extend the prune.
+        rays = pl.ds(i * R, R)
+        feats = {k: f_ref[k, rays] for k in used_rows}
+        tcap_i = jax.lax.bitcast_convert_type(f_ref[K, rays], jnp.int32)
+        if window:
+            # Per-ray [tmin, tmax] accept window (bvh::Ray semantics,
+            # ray.hpp:9-23) on the next two rows.
+            tmin_f = f_ref[K + 1, rays][:, None]
+            tmax_f = f_ref[K + 2, rays][:, None]
+        slot = jax.lax.broadcasted_iota(jnp.int32, (1, chunk), 1)
 
-        # Loop-invariant lane ids for the winner key packing (hoisted out
-        # of the walk loop: Mosaic does not CSE iota across iterations).
-        ids = jax.lax.broadcasted_iota(jnp.int32, (R, c_size), 1)
-        bitlane = None
-        if hier:
-            bitlane = jax.lax.broadcasted_iota(jnp.int32, (1, S), 1)
+        def numerators(bid, j):
+            """(R, chunk) u/v/det/t numerators of triangles
+            [j * chunk, (j + 1) * chunk) of block ``bid`` — f32 FMAs over
+            the non-zero rows of the packed weights."""
+            out = []
+            for ch in range(4):
+                cols = pl.ds(ch * c_size + j * chunk, chunk)
+                acc = None
+                for k in rows[ch]:
+                    term = feats[k][:, None] * w_ref[bid, k, cols][None, :]
+                    acc = term if acc is None else acc + term
+                out.append(acc)
+            return out
 
-        total = 0
-        for g in range(G):     # static unroll over the group's tiles
-            count = cnt_ref[0, 0, g]
-            # Feature block is CHANNEL-FIRST (Kp, G * R): rays ride the
-            # dense lane axis. The (R, Kp) form would make XLA pad
-            # Kp -> 128 lanes, and a 1080p frame's feats tensor balloons
-            # 16x to ~1 GB of HBM traffic (measured 13-24 ms/frame of
-            # pure concatenate before this layout).
-            f = f_ref[:, g * R:(g + 1) * R]
-            # Root-exit cap rides a spare (zero-weight) feature row; as
-            # int bits it joins the key-space comparisons directly. Dead
-            # rays carry tcap = -1.0 (negative bits) and never extend the
-            # prune. One (1, R) -> (R, 1) relayout per tile, not per
-            # visit.
-            tcap_i = jax.lax.bitcast_convert_type(
-                f[tcap_col:tcap_col + 1, :].reshape(R, 1), jnp.int32)
-            if window:
-                # Per-ray [tmin, tmax] accept window (bvh::Ray semantics,
-                # ray.hpp:9-23) riding the next two spare feature rows.
-                tmin_f = f[tcap_col + 1:tcap_col + 2, :].reshape(R, 1)
-                tmax_f = f[tcap_col + 2:tcap_col + 3, :].reshape(R, 1)
+        def accept(nu, nv, nd, nt):
+            """Branch-free Möller-Trumbore sign test on the numerators."""
+            s = jnp.where(nd >= 0, jnp.float32(1), jnp.float32(-1))
+            uvw = jnp.minimum(jnp.minimum(nu * s, nv * s),
+                              (nd - nu - nv) * s)
+            ok = (jnp.minimum(uvw, nt * s) >= 0) & (nd != 0)     # t >= 0
+            if mode == "any_seg":
+                # Segment rays (t = 1 at the segment's far end): only
+                # occluders at t <= 1 count.
+                ok = ok & ((nt - nd) * s <= 0)
+            return ok
 
-            if stream:
-                def _copy(k):
-                    cid = key_ref[0, g, jnp.minimum(k, n_c - 1)] & cmask
-                    if hier:
-                        # Super fetch: S consecutive fine blocks from
-                        # the super's first member (tree-derived supers
-                        # are contiguous runs of fine ids) into the
-                        # k-parity half of the FLAT (2 * S, ...) buffer
-                        # (one dynamic index per member read).
-                        fs = first_ref[0, cid]
-                        src = w_ref.at[pl.ds(fs, S)]
-                        dst = wbuf.at[pl.ds((k % 2) * S, S)]
-                    else:
-                        src = w_ref.at[cid]
-                        dst = wbuf.at[k % 2]
-                    return pltpu.make_async_copy(src, dst,
-                                                 sem.at[k % 2])
-
-                def start_fetch(k):
-                    _copy(k).start()
-
-                def wait_fetch(k):
-                    _copy(k).wait()
-
-                @pl.when(count > 0)
-                def _():
-                    start_fetch(0)
-
-            if hier:
-                # Per-tile hull scalars (precomputed in phase 1): safe
-                # inverses of the direction-interval ends, straddle
-                # flags, and the origin hull (zeros for common-origin
-                # wavefronts whose boxes are pre-shifted).
-                ia = [hull_ref[0, g, a] for a in range(3)]
-                ib = [hull_ref[0, g, 3 + a] for a in range(3)]
-                sf = [hull_ref[0, g, 6 + a] for a in range(3)]
-                olo = [hull_ref[0, g, 9 + a] for a in range(3)]
-                ohi = [hull_ref[0, g, 12 + a] for a in range(3)]
-
-                def block_entries(sid):
-                    """Int-key entry bounds of the tile hull against the
-                    S member block boxes of super ``sid`` — the
-                    _interval_entry test vectorized on S lanes. Each
-                    block is later gated against the LIVE prune (updated
-                    after every visit), preserving the flat walk's
-                    front-to-back early-exit at block granularity."""
-                    bb = bbox_ref[sid]                       # (8, S)
-                    tn = None
-                    tf = None
-                    for a in range(3):
-                        la = bb[a:a + 1, :] - ohi[a]
-                        ha = bb[3 + a:4 + a, :] - olo[a]
-                        c0 = la * ia[a]
-                        c1 = la * ib[a]
-                        c2 = ha * ia[a]
-                        c3 = ha * ib[a]
-                        emin = jnp.minimum(jnp.minimum(c0, c1),
-                                           jnp.minimum(c2, c3))
-                        emax = jnp.maximum(jnp.maximum(c0, c1),
-                                           jnp.maximum(c2, c3))
-                        wide = sf[a] > 0
-                        emin = jnp.where(wide, -_BIG, emin)
-                        emax = jnp.where(wide, _BIG, emax)
-                        tn = emin if tn is None else jnp.maximum(tn, emin)
-                        tf = emax if tf is None else jnp.minimum(tf, emax)
-                    tn = jnp.maximum(tn, 0.0)
-                    okb = (tn * (1.0 - _ULP_PAD)
-                           <= jnp.minimum(tf, _BIG) * (1.0 + _ULP_PAD))
-                    okb = okb & (bb[6:7, :] == 0.0)
-                    return jax.lax.bitcast_convert_type(
-                        jnp.where(okb, tn, _BIG), jnp.int32)   # (1, S)
-
-                _IMAX = jnp.int32(0x7FFFFFFF)
-
-            def cond(state):
-                k, prune_i = state[0], state[1]
-                # Compare the PURE entry bound: mask the low cid bits
-                # before the prune test. They raise the key by up to
-                # 2^cid_bits - 1 ulps, which EXCEEDS _PRUNE_PAD once
-                # n_c > 256 — testing the full key would non-
-                # conservatively end the walk while a remaining candidate
-                # can still hold a closer hit. The cleared entry bound is
-                # a lower bound of any member hit, so masking only costs
-                # (skippable) boundary visits, never correctness.
-                key_k = key_ref[0, g, jnp.minimum(k, n_c - 1)]
-                return (k < count) & ((key_k & ~cmask) <= prune_i)
-
-            def mt_accept(wj):
-                """All R x C MT numerators of this cluster; sign-test
-                accept.
-
-                ONE (Kp, R)^T @ (Kp, 4C) dot — the MXU evaluates every
-                numerator in a handful of systolic passes while the VPU
-                runs the previous visit's epilogue. K is thin (8/128 of
-                the systolic depth) but the MXU is otherwise idle, so
-                even at 6% utilization it beats burning VPU issue slots.
-                Zero-padded feature rows (including the tcap row)
-                multiply zero weight rows, so the contraction is
-                unchanged.
-                """
-                acc = jax.lax.dot_general(
-                    f, wj, (((0,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST)      # (R, 4C)
-                nu = acc[:, :c_size]
-                nv = acc[:, c_size:2 * c_size]
-                nd = acc[:, 2 * c_size:3 * c_size]
-                nt = acc[:, 3 * c_size:]
-                s = jnp.where(nd >= 0, 1.0, -1.0)
-                uvw = jnp.minimum(jnp.minimum(nu * s, nv * s),
-                                  (nd - nu - nv) * s)
-                if mode == "any_dest":
-                    # Common-DESTINATION rays (origin = the light, t = 1
-                    # at the receiving point): occluder iff the line hits
-                    # the triangle strictly between light and receiver,
-                    # 0 <= t <= 1 - eps. The upper window is
-                    # (nt - (1 - eps) * nd) * s <= 0; the LOWER bound
-                    # nt * s >= 0 rejects geometry BEHIND the light
-                    # (t < 0) — without it, any in-scene light whose
-                    # candidate clusters extend past it would darken
-                    # receivers on the opposite side. The eps window
-                    # replaces the receiver's geometric self-intersection
-                    # offset, which at light distance L is below f32
-                    # resolution of t (offset/L ~ 1e-7).
-                    win = ((nt - (1.0 - _DEST_EPS) * nd) * s <= 0) \
-                        & (nt * s >= 0)
-                    ok = (uvw >= 0) & (nd != 0) & win
-                else:
-                    m = jnp.minimum(uvw, nt * s)
-                    ok = (m >= 0) & (nd != 0)  # t >= 0 (nt*s >= 0)
-                return ok, nd, nt
-
-            def fetch_wait(k):
-                """Stream bookkeeping only: prefetch k+1, wait for k.
-                Hier bodies then index the wbuf REF per member block
-                (wbuf[k % 2, s] — s is a traced lane id)."""
-                @pl.when(k + 1 < count)
-                def _():
-                    start_fetch(k + 1)
-                wait_fetch(k)
-
-            def fetch_weights(k):
-                if stream:
-                    fetch_wait(k)
-                    return wbuf[k % 2]
-                return w_ref[key_ref[0, g, k] & cmask]
-
-            def winner_update(wj, bid, t_i, pid):
-                """MT accept + per-visit winner selection for one block.
-
-                Measured DEAD END (round 5): wrapping the selection
-                epilogue in lax.cond on a scalar any-accept reduce
-                (skipping ~5 of 13 (R, C)-shaped VPU ops on no-accept
-                visits) cost 8% on bunny 1080p (65.0 -> 60.2 Mrays/s)
-                and 7% on the 1.27M-tri scene (602 -> 647 ms) — the
-                reduce + branch outweigh the skipped work at these
-                accept rates. Keep the epilogue unconditional.
-                """
-                ok, nd, nt = mt_accept(wj)
-                # EXACT reciprocal: an approx=True variant saved no
-                # measurable time (the divide is not the bottleneck) and
-                # its ~2^-16 error forced a prune pad so wide the
-                # extra boundary visits cost 17% of the frame. t only
-                # feeds winner SELECTION (t/u/v are recomputed at the
-                # winners in plain JAX); nd == 0 lanes produce inf/NaN
+        def visit_closest(bid, carry):
+            """Winner update of every ray against block ``bid``."""
+            def chunk_body(j, carry):
+                t_i, pid = carry
+                nu, nv, nd, nt = numerators(bid, j)
+                ok = accept(nu, nv, nd, nt)
+                # t only feeds winner SELECTION (t/u/v are recomputed at
+                # the winners in plain JAX); nd == 0 lanes give inf/NaN,
                 # which ok (requiring nd != 0) masks to _BIG_CLEAN.
-                tpair = jnp.where(ok, nt * pl.reciprocal(nd, approx=False),
-                                  _BIG_CLEAN)
+                t = jnp.where(ok, nt / nd, _BIG_CLEAN)
                 if window:
-                    tpair = jnp.where((tpair >= tmin_f) & (tpair <= tmax_f),
-                                      tpair, _BIG_CLEAN)
-                keys = ((jax.lax.bitcast_convert_type(tpair, jnp.int32)
-                         & ~imask) | ids)
-                kmin = jnp.min(keys, axis=1, keepdims=True)  # ONE reduce
+                    t = jnp.where((t >= tmin_f) & (t <= tmax_f), t,
+                                  _BIG_CLEAN)
+                keys = ((jax.lax.bitcast_convert_type(t, jnp.int32)
+                         & ~imask) | (slot + j * chunk))
+                kmin = jnp.min(keys, axis=1)
                 t_new = kmin & ~imask
                 better = t_new < t_i
                 t_i = jnp.where(better, t_new, t_i)
                 pid = jnp.where(better, bid * c_size + (kmin & imask), pid)
                 return t_i, pid
 
-            if any_hit_mode and hier:
-                def body(state):
-                    k, prune_i, occ, nvis = state
-                    sid = key_ref[0, g, k] & cmask
-                    fs = first_ref[0, sid]
-                    if stream:
-                        fetch_wait(k)
-                    ent_i = block_entries(sid)
+            return jax.lax.fori_loop(0, n_chunks, chunk_body, carry)
 
-                    # In-super PRIORITY walk (see the closest-mode body).
-                    def in_cond(st2):
-                        rem = st2[0]   # int32 bitmask of unvisited slots
-                        live = ((rem >> bitlane) & 1) == 1
-                        return jnp.min(jnp.where(live, ent_i, _IMAX)) \
-                            <= st2[3]
+        def visit_any(bid, occ):
+            def chunk_body(j, occ):
+                ok = accept(*numerators(bid, j))
+                return occ | jnp.max(
+                    jnp.where(ok, jnp.int32(1), jnp.int32(0)), axis=1)
 
-                    def in_body(st2):
-                        rem, occ_, nv_, _ = st2
-                        live = ((rem >> bitlane) & 1) == 1
-                        masked = jnp.where(live, ent_i, _IMAX)
-                        m = jnp.min(masked)
-                        s = jnp.min(jnp.where(masked == m, bitlane, _IMAX))
-                        rem = rem & ~(jnp.int32(1) << s)
-                        wj = wbuf[(k % 2) * S + s] if stream \
-                            else w_ref[fs + s]
-                        ok, _, _ = mt_accept(wj)
-                        occ_ = occ_ | jnp.max(
-                            jnp.where(ok, jnp.int32(1), jnp.int32(0)),
-                            axis=1, keepdims=True)
-                        pr_ = (jnp.max(jnp.where(occ_ > 0, _NEG_I,
-                                                 tcap_i)) + _PRUNE_PAD)
-                        return rem, occ_, nv_ + 1, pr_
+            return jax.lax.fori_loop(0, n_chunks, chunk_body, occ)
 
-                    rem0 = (jnp.int32(-1) if S == 32
-                            else jnp.int32((1 << S) - 1))
-                    _, occ, nvis, prune_i = jax.lax.while_loop(
-                        in_cond, in_body,
-                        (rem0, occ, nvis, prune_i))
-                    return k + 1, prune_i, occ, nvis
+        if any_hit_mode:
+            visit = visit_any
+            carry0 = occ0_ref[...]
 
-                occ0 = occ0_ref[g * R:(g + 1) * R].reshape(R, 1)
-                prune0 = (jnp.max(jnp.where(occ0 > 0, _NEG_I, tcap_i))
-                          + _PRUNE_PAD)
-                k, _, occ, nvis = jax.lax.while_loop(
-                    cond, body, (jnp.int32(0), prune0, occ0, jnp.int32(0)))
-                out_ref[g * R:(g + 1) * R] = occ.reshape(R)
-            elif any_hit_mode:
-                def body(state):
-                    k, prune_i, occ = state
-                    wj = fetch_weights(k)
-                    ok, _, _ = mt_accept(wj)
-                    occ = occ | jnp.max(
-                        jnp.where(ok, jnp.int32(1), jnp.int32(0)),
-                        axis=1, keepdims=True)
-                    prune_i = (jnp.max(jnp.where(occ > 0, _NEG_I, tcap_i))
-                               + _PRUNE_PAD)
-                    return k + 1, prune_i, occ
+            def prune_of(occ):
+                return (jnp.max(jnp.where(occ > 0, _NEG_I, tcap_i))
+                        + _PRUNE_PAD)
+        else:
+            visit = visit_closest
+            carry0 = (jnp.full((R,), _BIG_CLEAN_I, jnp.int32),
+                      jnp.full((R,), -1, jnp.int32))
 
-                occ0 = occ0_ref[g * R:(g + 1) * R].reshape(R, 1)
-                prune0 = (jnp.max(jnp.where(occ0 > 0, _NEG_I, tcap_i))
-                          + _PRUNE_PAD)
-                state = jax.lax.while_loop(cond, body,
-                                           (jnp.int32(0), prune0, occ0))
-                k, _, occ = state
-                nvis = k
-                out_ref[g * R:(g + 1) * R] = occ.reshape(R)
-            elif hier:
-                def body(state):
-                    k, prune_i, t_i, pid, nvis = state
-                    sid = key_ref[0, g, k] & cmask
-                    fs = first_ref[0, sid]
-                    if stream:
-                        fetch_wait(k)
-                    ent_i = block_entries(sid)
+            def prune_of(carry):
+                return jnp.max(jnp.minimum(carry[0], tcap_i)) + _PRUNE_PAD
 
-                    # In-super PRIORITY walk: iteratively extract the
-                    # remaining member with the SMALLEST entry bound and
-                    # visit it only while that minimum is under the live
-                    # prune. Replaces the S sequential lax.cond gates
-                    # (which cost a masked reduce + branch PER SLOT even
-                    # when every member is culled — measured ~40% of the
-                    # 1.27M-tri frame) with ~2 lane reduces per EXECUTED
-                    # visit, and visits members front-to-back, so the
-                    # prune (refreshed after every visit) converges
-                    # faster than slot order.
-                    def in_cond(st2):
-                        rem = st2[0]   # int32 bitmask of unvisited slots
-                        live = ((rem >> bitlane) & 1) == 1
-                        return jnp.min(jnp.where(live, ent_i, _IMAX)) \
-                            <= st2[4]
+        def cond(state):
+            k, prune_i = state[0], state[1]
+            # Compare the PURE entry bound: mask the low cid bits before
+            # the prune test. They raise the key by up to 2^cid_bits - 1
+            # ulps, which EXCEEDS _PRUNE_PAD once n_c > 256 — testing the
+            # full key would non-conservatively end the walk while a
+            # remaining candidate can still hold a closer hit.
+            key_k = key_ref[i, jnp.minimum(k, n_c - 1)]
+            return (k < count) & ((key_k & ~cmask) <= prune_i)
 
-                    def in_body(st2):
-                        rem, t_, pid_, nv_, _ = st2
-                        live = ((rem >> bitlane) & 1) == 1
-                        masked = jnp.where(live, ent_i, _IMAX)
-                        m = jnp.min(masked)
-                        s = jnp.min(jnp.where(masked == m, bitlane, _IMAX))
-                        rem = rem & ~(jnp.int32(1) << s)
-                        wj = wbuf[(k % 2) * S + s] if stream \
-                            else w_ref[fs + s]
-                        t_, pid_ = winner_update(wj, fs + s, t_, pid_)
-                        pr_ = (jnp.max(jnp.minimum(t_, tcap_i))
-                               + _PRUNE_PAD)
-                        return rem, t_, pid_, nv_ + 1, pr_
+        if hier:
+            # Per-tile hull scalars (precomputed in phase 1): safe inverses
+            # of the direction-interval ends, straddle flags, and the
+            # origin hull (zeros for common-origin wavefronts whose boxes
+            # are pre-shifted).
+            ia = [hull_ref[i, a] for a in range(3)]
+            ib = [hull_ref[i, 3 + a] for a in range(3)]
+            sf = [hull_ref[i, 6 + a] for a in range(3)]
+            olo = [hull_ref[i, 9 + a] for a in range(3)]
+            ohi = [hull_ref[i, 12 + a] for a in range(3)]
+            bitlane = jax.lax.broadcasted_iota(jnp.int32, (S,), 0)
+            rem0 = jnp.int32(-1) if S == 32 else jnp.int32((1 << S) - 1)
 
-                    rem0 = (jnp.int32(-1) if S == 32
-                            else jnp.int32((1 << S) - 1))
-                    _, t_i, pid, nvis, prune_i = jax.lax.while_loop(
-                        in_cond, in_body,
-                        (rem0, t_i, pid, nvis, prune_i))
-                    return k + 1, prune_i, t_i, pid, nvis
+            def block_entries(sid):
+                """Int-key entry bounds (S,) of the tile hull against the
+                member block boxes of super ``sid`` — the _interval_entry
+                test, vectorized over the S members."""
+                tn = None
+                tf = None
+                for a in range(3):
+                    la = bbox_ref[sid, a, :] - ohi[a]
+                    ha = bbox_ref[sid, 3 + a, :] - olo[a]
+                    c0 = la * ia[a]
+                    c1 = la * ib[a]
+                    c2 = ha * ia[a]
+                    c3 = ha * ib[a]
+                    emin = jnp.minimum(jnp.minimum(c0, c1),
+                                       jnp.minimum(c2, c3))
+                    emax = jnp.maximum(jnp.maximum(c0, c1),
+                                       jnp.maximum(c2, c3))
+                    wide = sf[a] > 0
+                    emin = jnp.where(wide, -_BIG, emin)
+                    emax = jnp.where(wide, _BIG, emax)
+                    tn = emin if tn is None else jnp.maximum(tn, emin)
+                    tf = emax if tf is None else jnp.minimum(tf, emax)
+                tn = jnp.maximum(tn, 0.0)
+                okb = (tn * (1.0 - _ULP_PAD)
+                       <= jnp.minimum(tf, _BIG) * (1.0 + _ULP_PAD))
+                okb = okb & (bbox_ref[sid, 6, :] == 0.0)
+                return jax.lax.bitcast_convert_type(
+                    jnp.where(okb, tn, _BIG), jnp.int32)
 
-                t0 = jnp.full((R, 1), _BIG_CLEAN_I, jnp.int32)
-                pid0 = jnp.full((R, 1), -1, jnp.int32)
-                prune0 = jnp.max(tcap_i) + _PRUNE_PAD
-                k, _, _, pid, nvis = jax.lax.while_loop(
-                    cond, body,
-                    (jnp.int32(0), prune0, t0, pid0, jnp.int32(0)))
-                out_ref[g * R:(g + 1) * R] = pid.reshape(R)
-            else:
-                def body(state):
-                    k, prune_i, t_i, pid = state
-                    cid = key_ref[0, g, k] & cmask
-                    wj = fetch_weights(k)
-                    t_i, pid = winner_update(wj, cid, t_i, pid)
-                    prune_i = jnp.max(jnp.minimum(t_i, tcap_i)) + _PRUNE_PAD
-                    return k + 1, prune_i, t_i, pid
+            def body(state):
+                k, prune_i, carry, nvis = state
+                sid = key_ref[i, k] & cmask
+                fs = first_ref[sid]
+                ent = block_entries(sid)
 
-                t0 = jnp.full((R, 1), _BIG_CLEAN_I, jnp.int32)
-                pid0 = jnp.full((R, 1), -1, jnp.int32)
-                prune0 = jnp.max(tcap_i) + _PRUNE_PAD
-                state = jax.lax.while_loop(
-                    cond, body, (jnp.int32(0), prune0, t0, pid0))
-                k, _, _, pid = state
-                nvis = k
-                out_ref[g * R:(g + 1) * R] = pid.reshape(R)
-            if stream:
-                # Drain the in-flight prefetch a prune early-exit left
-                # behind (the warmup fetch when the loop never ran, or
-                # the k-th fetch issued by body(k-1)).
-                @pl.when(k < count)
-                def _():
-                    wait_fetch(k)
-            total = total + nvis
-        steps_ref[0, 0] += total
+                def in_cond(st2):
+                    live = ((st2[0] >> bitlane) & 1) == 1
+                    return jnp.min(jnp.where(live, ent, _IMAX)) <= st2[3]
+
+                def in_body(st2):
+                    rem, carry, nv, _ = st2
+                    live = ((rem >> bitlane) & 1) == 1
+                    masked = jnp.where(live, ent, _IMAX)
+                    m = jnp.min(masked)
+                    s = jnp.min(jnp.where(masked == m, bitlane, _IMAX))
+                    rem = rem & ~(jnp.int32(1) << s)
+                    carry = visit(fs + s, carry)
+                    return rem, carry, nv + 1, prune_of(carry)
+
+                _, carry, nvis, prune_i = jax.lax.while_loop(
+                    in_cond, in_body, (rem0, carry, nvis, prune_i))
+                return k + 1, prune_i, carry, nvis
+        else:
+            def body(state):
+                k, _, carry, nvis = state
+                carry = visit(key_ref[i, k] & cmask, carry)
+                return k + 1, prune_of(carry), carry, nvis + 1
+
+        _, _, carry, nvis = jax.lax.while_loop(
+            cond, body, (jnp.int32(0), prune_of(carry0), carry0,
+                         jnp.int32(0)))
+        out_ref[...] = carry if any_hit_mode else carry[1]
+        steps_ref[i] = nvis
 
     return kernel
 
 
-@functools.partial(jax.jit, static_argnames=("tcap_col", "mode",
-                                             "stream", "interpret", "S",
-                                             "window"))
+@functools.partial(jax.jit, static_argnames=("K", "mode", "interpret", "S",
+                                             "window", "chunk"))
 def _walk_pallas(counts, keys, feats, w, occ0=None, hull=None, bbox=None,
-                 first=None, *, tcap_col, mode, stream, interpret, S=1,
-                 window=False):
-    """Launch the walk kernel over all tiles. Returns (out, steps).
+                 first=None, *, K, mode, interpret, S=1, window=False,
+                 chunk=None):
+    """Launch the walk kernel, one program per tile. Returns (out, steps).
 
-    feats is CHANNEL-FIRST (Kp, n_tiles * R) — rays on the dense lane
-    axis (see the kernel docstring for why ray-major would cost ~1 GB of
-    lane padding per frame). occ0, when given, is flat (n_tiles * R,).
-    out is flat (n_tiles * R,) int32 — packed winner slot ids (closest
-    mode, -1 = miss) or occlusion flags (any-hit mode); 1-D keeps the
-    buffer dense (a (tiles, R, 1) form is lane-padded 128x by XLA).
-    steps is the MEASURED total of executed block visits (the
-    Statistics capability, single_ray_traverser.hpp:131-163).
+    feats is CHANNEL-FIRST (Kp, n_tiles * R): rows [features (K), tcap,
+    window rows...]. occ0, when given, is flat (n_tiles * R,). out is
+    flat (n_tiles * R,) int32 — packed winner slot ids (closest mode,
+    -1 = miss) or occlusion flags (any-hit modes). steps is the
+    (n_tiles,) MEASURED executed block visits of each tile (the
+    Statistics capability, single_ray_traverser.hpp:131-163); callers
+    sum it.
 
     ``S > 1`` selects the two-level walk: ``keys``/``counts`` are then
     per-SUPER (n_tiles, n_s) candidates, ``w`` holds the fine blocks
@@ -826,89 +631,46 @@ def _walk_pallas(counts, keys, feats, w, occ0=None, hull=None, bbox=None,
     hull-scalar table, ``bbox`` the (n_s, 8, S) member-block box tensor
     and ``first`` the (n_s,) first-member table (member block m of
     super j is fine block first[j] + m).
+
+    ``chunk`` is the triangles per register block (default _CHUNK_TRIS
+    compiled, the whole cluster interpreted — the CPU interpreter has no
+    registers to spare and runs fewer, wider steps faster).
     """
-    Kp, R_total = feats.shape
+    _, R_total = feats.shape
     n_tiles = counts.shape[0]
     R = R_total // n_tiles
-    C4 = w.shape[-1]
-    if S > 1:
-        n_s = bbox.shape[0]
-        n_c = n_s                      # candidate-list width = supers
-    else:
-        n_c = w.shape[0]
-    any_hit_mode = mode in ("any", "any_dest")
-    G = min(_GROUP_TILES, n_tiles)
-    pad_t = (-n_tiles) % G
-    if pad_t:
-        # Padding tiles have count 0: the walk skips them and writes the
-        # init state (miss / unoccluded); their output rows are dropped.
-        counts = jnp.pad(counts, (0, pad_t))
-        keys = jnp.pad(keys, ((0, pad_t), (0, 0)))
-        feats = jnp.pad(feats, ((0, 0), (0, pad_t * R)))
-        if occ0 is not None:
-            occ0 = jnp.pad(occ0, (0, pad_t * R))
-        if hull is not None:
-            hull = jnp.pad(hull, ((0, pad_t), (0, 0)))
-    n_groups = (n_tiles + pad_t) // G
-    in_specs = [
-        pl.BlockSpec((1, 1, G), lambda i: (i, 0, 0),
-                     memory_space=pltpu.SMEM),
-        pl.BlockSpec((1, G, n_c), lambda i: (i, 0, 0),
-                     memory_space=pltpu.SMEM),
-        pl.BlockSpec((Kp, G * R), lambda i: (0, i),
-                     memory_space=pltpu.VMEM),
-    ]
-    args = [counts.reshape(n_groups, 1, G), keys.reshape(n_groups, G, n_c),
-            feats]
-    if any_hit_mode:
-        in_specs.append(pl.BlockSpec((G * R,), lambda i: (i,),
-                                     memory_space=pltpu.VMEM))
+    c_size = w.shape[-1] // 4
+    n_c = bbox.shape[0] if S > 1 else w.shape[0]
+    if chunk is None:
+        chunk = c_size if interpret else min(_CHUNK_TRIS, c_size)
+    if c_size % chunk:
+        raise ValueError(f"chunk {chunk} must divide the cluster width "
+                         f"{c_size}")
+    whole = pl.BlockSpec(memory_space=pl.ANY)
+    tile_rays = pl.BlockSpec((R,), lambda i: (i,))
+    in_specs = [whole, whole, whole]
+    args = [counts, keys, feats]
+    if mode in ("any", "any_seg"):
+        in_specs.append(tile_rays)
         args.append(occ0)
     if S > 1:
-        in_specs.append(pl.BlockSpec((1, G, 16), lambda i: (i, 0, 0),
-                                     memory_space=pltpu.SMEM))
-        args.append(hull.reshape(n_groups, G, 16))
-        in_specs.append(pl.BlockSpec((n_s, 8, S), lambda i: (0, 0, 0),
-                                     memory_space=pltpu.VMEM))
-        args.append(bbox)
-        in_specs.append(pl.BlockSpec((1, n_s), lambda i: (0, 0),
-                                     memory_space=pltpu.SMEM))
-        args.append(first.reshape(1, n_s))
-    if stream:
-        in_specs.append(pl.BlockSpec(memory_space=pl.ANY))
-    else:
-        in_specs.append(pl.BlockSpec((w.shape[0], Kp, C4),
-                                     lambda i: (0, 0, 0),
-                                     memory_space=pltpu.VMEM))
+        in_specs += [whole, whole, whole]
+        args += [hull, bbox, first]
+    in_specs.append(whole)
     args.append(w)
-    wbuf_shape = (2 * S, Kp, C4) if S > 1 else (2, Kp, C4)
     out, steps = pl.pallas_call(
-        _make_walk_kernel(C4 // 4, n_c, R, G, tcap_col, mode,
-                          stream, S, window),
-        grid_spec=pl.GridSpec(
-            grid=(n_groups,),
-            in_specs=in_specs,
-            out_specs=[
-                pl.BlockSpec((G * R,), lambda i: (i,),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 1), lambda i: (0, 0),
-                             memory_space=pltpu.SMEM),
-            ],
-            scratch_shapes=([pltpu.VMEM(wbuf_shape, jnp.float32),
-                             pltpu.SemaphoreType.DMA((2,))] if stream
-                            else []),
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((n_groups * G * R,), jnp.int32),
-            jax.ShapeDtypeStruct((1, 1), jnp.int32),
-        ],
+        _make_walk_kernel(c_size, n_c, R, K, mode, S, window, chunk),
+        grid=(n_tiles,),
+        in_specs=in_specs,
+        out_specs=[tile_rays, whole],
+        out_shape=[jax.ShapeDtypeStruct((R_total,), jnp.int32),
+                   jax.ShapeDtypeStruct((n_tiles,), jnp.int32)],
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=_NUM_WARPS),
         interpret=interpret,
+        name="ceres_walk",
     )(*args)
-    return out[:R_total], steps
-
-
-def _use_stream(w) -> bool:
-    return w.size * 4 > _RESIDENT_W_BYTES
+    return out, steps
 
 
 # ---------------------------------------------------------------------------
@@ -935,8 +697,7 @@ def _cols(x):
     """(R, 3) array or 3-tuple of (R,) columns -> 3-tuple of columns.
 
     The public entry points accept either form; everything internal runs
-    on flat (R,) columns (structure-of-arrays) because (R, 3) arrays put
-    the 3-vector on the 128-lane axis and waste 42x of the VPU.
+    on flat (R,) columns (structure-of-arrays).
     """
     if isinstance(x, (tuple, list)):
         return tuple(x)
@@ -946,10 +707,8 @@ def _cols(x):
 def _feats_from_cols(cols, kp, tcap=None, extra=()):
     """Per-ray feature columns -> CHANNEL-FIRST (kp, R).
 
-    Layout: rows [cols..., 1, tcap?, extra..., zeros...], rays on the
-    dense lane axis. The ray-major (R, kp) form would be lane-padded
-    kp -> 128 by XLA (16x memory for kp = 8; measured 13-24 ms/frame of
-    concatenate at 1080p). The root-exit cap rides the first spare
+    Layout: rows [cols..., 1, tcap?, extra..., zeros...], one contiguous
+    (R,) row per feature. The root-exit cap rides the first spare
     (zero-weight-row) feature row, saving the kernel a separate input
     stream; its row index is ``len(cols) + 1`` (returned layout is
     static per n_feat). ``extra`` rows (e.g. the per-ray tmin/tmax
@@ -965,7 +724,7 @@ def _feats_from_cols(cols, kp, tcap=None, extra=()):
     if kp > len(arrs):
         zero = jnp.zeros((R,), cols[0].dtype)
         arrs.extend([zero] * (kp - len(arrs)))
-    return jnp.stack(arrs, axis=0)
+    return jnp.stack([a.astype(cols[0].dtype) for a in arrs], axis=0)
 
 
 def _pad_rays(x, tile=TILE):
@@ -999,7 +758,7 @@ def _detach_f32(tree):
 
     The kernel's double-precision story (the reference's ``Scalar``
     float/double axis, anim.cpp:154-158): winner/occlusion SEARCH always
-    runs the f32 TPU datapath; everything a float64 caller observes —
+    runs the f32 walk kernel; everything a float64 caller observes —
     (t, u, v) at the winners, shading, gradients — is recomputed in f64
     from the original arrays. The deviation from an all-f64 traversal is
     confined to winner tie-breaks within f32 resolution, the same class
@@ -1087,9 +846,9 @@ def _closest_search(cs, eye, dir_cols, tmin=None, tmax=None):
                                         alive=alive)
     pidx, steps = _walk_pallas(
         counts, keys, feats, w, hull=hull, bbox=bbox, first=first,
-        tcap_col=4, mode="closest", stream=_use_stream(w),
-        interpret=_interpret(), S=S, window=window)
-    steps = steps[0, 0]
+        K=4, mode="closest", interpret=_walk_interpret(), S=S,
+        window=window)
+    steps = jnp.sum(steps)
     return pidx.reshape(-1)[:R], {"traversal_steps": steps,
                                   "mt_block_visits": steps}
 
@@ -1137,16 +896,11 @@ def _winner_table_cols(soup: TriangleSoup, cs, payload_cols):
     recompute, the original triangle id (perm as an exact f32 VALUE — ids
     are exact in a float32 mantissa up to 2^24 triangles, and a float
     value survives the dense-unpack matmul where a bit pattern would be
-    denormal-flushed; a separate s32 gather by original id lowers to a
-    15 ms/frame scalar-loop custom call), and any per-triangle shading
-    payload. The face normal is NOT stored — _winner_tuv recomputes it
-    as cross(e1, e2) (bit-identical; saves three 8 MB gathered columns
-    per frame). COLUMNS, not a
-    (slots, 10+P) table: a row-major table's minor dim is lane-padded
-    to 128 by XLA, and every downstream column slice then re-streams
-    the whole ~1 GB padded gather output (measured ~21 ms/frame at
-    1080p). Built from ``soup`` (NOT the stop-gradiented cluster arrays)
-    so gradients flow to vertices through the gather.
+    denormal-flushed), and any per-triangle shading payload. The face
+    normal is NOT stored — _winner_tuv recomputes it as cross(e1, e2)
+    (bit-identical; three fewer gathered columns per frame). Built from
+    ``soup`` (NOT the stop-gradiented cluster arrays) so gradients flow
+    to vertices through the gather.
     """
     src = jnp.clip(cs.perm, 0)
     valid = cs.perm >= 0
@@ -1164,14 +918,9 @@ def winner_table(soup: TriangleSoup, clusters, payload=None):
     """Precompute the STACKED winner table for a static-geometry loop.
 
     The table depends only on (soup, clusters, payload) — loop-invariant
-    across frames of static geometry. Measured: XLA already hoists the
-    construction inside jitted fori_loop frame loops (1.27M-tri frame
-    603 vs 602 ms with/without), so this helps EAGER per-frame callers
-    and makes the hoist explicit; the ~100 ms/frame epilogue at that
-    scale is the per-ray random row gather over the scene-sized table
-    (megakernel._closest_search vs closest_hit_common_origin probe,
-    benchmarks/epilogue_probe.py), which precomputation cannot remove.
-    Pass back via ``closest_hit_common_origin(..., table_cols=...)``;
+    across frames of static geometry. XLA may hoist its construction out
+    of a jitted frame loop itself; this serves EAGER per-frame callers
+    and makes the hoist explicit. Pass back via ``closest_hit_common_origin(..., table_cols=...)``;
     the payload must be the same sequence that call would receive.
     Differentiable w.r.t. ``soup`` exactly like the inline build.
     """
@@ -1236,16 +985,12 @@ def closest_hit_common_origin(soup: TriangleSoup, eye, dirs, clusters=None,
                             axis=-1))
     n_cols = table.shape[-1]
     idx = jnp.clip(pidx, 0)
-    # ONE row gather (the TPU fast path; per-column 1-D gathers lower to
-    # scalar loops, measured >10x slower), then an identity matmul to
-    # materialize the columns DENSE. The matmul is not decoration: XLA
-    # turns a plain transpose into a zero-cost layout bitcast, after
-    # which every downstream column consumer re-streams the whole
-    # lane-padded (R, 13+P) gather output — measured ~21 ms/frame at
-    # 1080p. An MXU op is forced to produce a standard dense layout, so
-    # the padded buffer is read once and the 13+P consumers each read an
-    # 8 MB dense column. Exact (identity rows at HIGHEST precision) and
-    # linear, so gradients pass through untouched.
+    # ONE row gather, then an identity matmul to materialize the columns
+    # as dense rows: a plain transpose can become a layout bitcast that
+    # leaves every column consumer reading the strided gather output.
+    # Whether this layout still pays on the H100 is not measured. Exact
+    # (identity rows at HIGHEST precision: true f32) and linear, so
+    # gradients pass through untouched.
     recT = jnp.matmul(jnp.eye(n_cols, dtype=table.dtype),
                       jnp.transpose(table[idx]),
                       precision=jax.lax.Precision.HIGHEST)
@@ -1272,10 +1017,18 @@ def closest_hit_common_origin(soup: TriangleSoup, eye, dirs, clusters=None,
 
 
 def any_hit(soup: TriangleSoup, origin_shift, origins, dirs, skip=None,
-            clusters=None, with_counts=False, exact_f64=False):
+            clusters=None, with_counts=False, exact_f64=False,
+            segment=False):
     """Occlusion test: True where a ray (origins[i], dirs[i]) hits anything.
 
-    ``origins``/``dirs`` are (R, 3) or 3-tuples of (R,) columns.
+    ``origins``/``dirs`` are (R, 3) or 3-tuples of (R,) columns. With
+    ``segment=True`` each ``dirs[i]`` is a segment vector (its far end at
+    t = 1) and only occluders at 0 <= t <= 1 count — the shadow query
+    toward a point light. The generic form stays well conditioned however
+    far the light is; rays cast FROM the light (a common origin) would
+    save features but form numerators as differences of terms ~ (light
+    distance x triangle size), which in f32 leave cracks between adjacent
+    occluders under a far light.
     ``origin_shift`` recenters the world for conditioning (see
     ceres_tpu.ops.intersect docstring); ``skip`` marks rays whose answer is
     irrelevant (no primary hit) so they generate no traversal work.
@@ -1292,7 +1045,7 @@ def any_hit(soup: TriangleSoup, origin_shift, origins, dirs, skip=None,
                 jax.tree.map(jax.lax.stop_gradient, soup))
         result, cnts = walk_f64.any_hit_f64(
             cs64, jnp.asarray(origin_shift), _cols(origins), _cols(dirs),
-            skip=skip)
+            skip=skip, segment=segment)
         if with_counts:
             cnts["mt_pairs"] = (cnts["mt_block_visits"]
                                 * TILE * cs64.cluster_size)
@@ -1301,10 +1054,9 @@ def any_hit(soup: TriangleSoup, origin_shift, origins, dirs, skip=None,
     soup, shift, o_cols, d_cols = _detach_f32(
         (soup, origin_shift, _cols(origins), _cols(dirs)))
     R = d_cols[0].shape[0]
-    if clusters is None:
-        cs = cl.build_clusters_treelet(soup)
-    else:
-        cs = _detach_f32(clusters)
+    # The build may promote under x64: the search runs in f32 regardless.
+    cs = _detach_f32(cl.build_clusters_treelet(soup) if clusters is None
+                     else clusters)
     w = cl.cluster_weights_generic_packed(cs, shift)
     lo = cs.lo - shift
     hi = cs.hi - shift
@@ -1327,6 +1079,9 @@ def any_hit(soup: TriangleSoup, origin_shift, origins, dirs, skip=None,
     # Padding rays are not skipped but have zero dirs -> tcap = -1, so they
     # never extend a tile's prune and never resolve to occluded.
     tcap = _ray_tcap(root_lo - shift, root_hi - shift, op, dp)
+    if segment:
+        # Nothing past the segment's end can occlude (padding rays keep -1).
+        tcap = jnp.minimum(tcap, 1.0 + _ULP_PAD)
     feats = _feats_from_cols(dp + dxo + op, w.shape[1], tcap=tcap)
     occ0 = skip_p.astype(jnp.int32)
     S, hull, bbox, first, cull_lo, cull_hi, w = _hier_setup(
@@ -1335,9 +1090,9 @@ def any_hit(soup: TriangleSoup, origin_shift, origins, dirs, skip=None,
                                         orig_tiled, alive)
     occ, steps = _walk_pallas(
         counts, keys, feats, w, occ0, hull=hull, bbox=bbox, first=first,
-        tcap_col=10, mode="any", stream=_use_stream(w),
-        interpret=_interpret(), S=S)
-    steps = steps[0, 0]
+        K=10, mode="any_seg" if segment else "any",
+        interpret=_walk_interpret(), S=S)
+    steps = jnp.sum(steps)
     result = (occ.reshape(-1)[:R] == 1) & ~skip
     if with_counts:
         cnts = {"traversal_steps": steps, "mt_block_visits": steps,
@@ -1345,132 +1100,3 @@ def any_hit(soup: TriangleSoup, origin_shift, origins, dirs, skip=None,
         return result, cnts
     return result
 
-
-def any_hit_to_point(soup: TriangleSoup, dest, points, skip=None,
-                     clusters=None, with_counts=False, exact_f64=False,
-                     regroup=None):
-    """Occlusion between each ``points[i]`` and the common point ``dest``.
-
-    THE shadow-ray fast path: every shadow ray of a frame aims at the one
-    sun, so the wavefront is re-parameterized as rays FROM ``dest``
-    (t = 0) TO each receiving point (t = 1). A line through a fixed point
-    is characterized by its direction alone — exactly the common-ORIGIN
-    case — so the K = 4 feature factorization applies (2.5x fewer FMA
-    lanes than the 10-feature generic form the reference-equivalent ray
-    would need) and the per-tile direction hulls are as tight as the
-    receiving points are coherent. The accept keeps the Möller-Trumbore
-    sign test but swaps the t >= 0 bound for the window t <= 1 - eps:
-    occluders strictly between light and receiver. Replaces the
-    reference's shadow query (render.hpp:134-141) with one semantic
-    deviation, documented at RenderConfig.reference_compat: the
-    reference's tmax is unbounded, so geometry BEYOND the light also
-    darkens there.
-
-    ``points`` is (R, 3) or a 3-tuple of (R,) columns. ``skip`` marks
-    rays whose answer is irrelevant. Boolean, intentionally
-    non-differentiable (detached visibility).
-    """
-    if exact_f64:
-        from ceres_tpu.ops import walk_f64
-
-        cs64 = clusters if clusters is not None else \
-            cl.build_clusters_treelet(
-                jax.tree.map(jax.lax.stop_gradient, soup))
-        result, cnts = walk_f64.any_hit_to_point_f64(
-            cs64, jnp.asarray(dest), _cols(points), skip=skip)
-        if with_counts:
-            cnts["mt_pairs"] = (cnts["mt_block_visits"]
-                                * TILE * cs64.cluster_size)
-            return result, cnts
-        return result
-    soup, dest, p_cols = _detach_f32((soup, dest, _cols(points)))
-    R = p_cols[0].shape[0]
-    if clusters is None:
-        cs = cl.build_clusters_treelet(soup)
-    else:
-        cs = _detach_f32(clusters)
-    w = cl.cluster_weights_common_origin_packed(cs, dest)
-    lo = cs.lo - dest
-    hi = cs.hi - dest
-    root_lo, root_hi = _scene_root(cs)
-    if skip is None:
-        skip = jnp.zeros((R,), bool)
-    if regroup is None:
-        # Screen tiles that straddle a DEPTH discontinuity mix receivers
-        # from distant surfaces, so their world-space hulls sweep fat
-        # tubes from the light (measured: candidate count correlates
-        # 0.65 with per-tile receiver depth spread on the 1.27M-tri
-        # scene; discontinuous tiles schedule 5x the supers). Re-tiling
-        # the wavefront by receiver-POSITION morton code makes every
-        # tile a compact surface patch and groups skip rays into dead
-        # all-skip tiles. Measured NEGATIVE on the 1.27M-tri scene,
-        # twice, for two different reasons: at the full 512-ray tile the
-        # regrouped tiles are DENSE (screen tiles were ~20% alive), so
-        # patches grow 5x and visits RISE (816 vs 602 ms/frame); at
-        # 128-ray tiles the lane-work halves (67M -> 33M lane-visits)
-        # but the walk goes DMA-bound — the 512 KB super fetch is per
-        # SUPER VISIT, independent of tile width, so 4x the tiles means
-        # 4x the stream traffic (613 ms: the prepass win refunded).
-        # Default OFF; CERES_SHADOW_REGROUP=1 or regroup=True re-enable
-        # (e.g. for VMEM-resident scenes where no DMA is involved).
-        regroup = (_SHADOW_REGROUP == "1"
-                   or (_SHADOW_REGROUP == "auto"
-                       and cs.num_clusters > _HIER_MIN_CLUSTERS))
-    perm = None
-    if regroup:
-        from ceres_tpu.accel import morton
-
-        code = morton.morton_codes(jnp.stack(p_cols, axis=-1),
-                                   root_lo, root_hi)
-        code = jnp.where(skip, jnp.int32(0x7FFFFFFF), code)
-        perm = jnp.argsort(code).astype(jnp.int32)
-        # ONE row gather + identity matmul for dense columns (the winner
-        # gather pattern; per-column 1-D gathers lower to scalar loops).
-        table = jnp.stack([p_cols[0], p_cols[1], p_cols[2],
-                           skip.astype(jnp.float32)], axis=-1)
-        recT = jnp.matmul(jnp.eye(4, dtype=table.dtype),
-                          jnp.transpose(table[perm]),
-                          precision=jax.lax.Precision.HIGHEST)
-        p_cols = (recT[0], recT[1], recT[2])
-        skip = recT[3] > 0.5
-    # Regrouped tiles are DENSE (every lane alive — skips pack into dead
-    # tail tiles), so a full-TILE patch covers ~5x the surface of the
-    # sparsely-alive screen tiles it replaces and its hull schedules
-    # more, not less (measured 816 vs 602 ms/frame at 1.27M tris).
-    # Shrink the tile so a regrouped patch matches the alive-lane count
-    # the screen tiling had.
-    tile = _REGROUP_TILE if perm is not None else TILE
-    d = tuple(p_cols[a] - dest[a] for a in range(3))    # t=1 at the point
-    dp = tuple(_pad_rays(c, tile) for c in d)
-    dirs_tiled = tuple(c.reshape(-1, tile) for c in dp)
-    skip_p = _pad_rays(skip, tile)
-    alive = ~skip_p.reshape(-1, tile)
-    alive = alive & ((dirs_tiled[0] * dirs_tiled[0]
-                      + dirs_tiled[1] * dirs_tiled[1]
-                      + dirs_tiled[2] * dirs_tiled[2]) > 0.0)
-    # Visit cap: nothing past the receiving point can occlude, so the
-    # root-exit cap is additionally clamped to t = 1 (+ slack for the
-    # conservative entry bounds). Padding rays (zero dirs) keep tcap -1.
-    tcap = _ray_tcap(root_lo - dest, root_hi - dest, None, dp)
-    tcap = jnp.minimum(tcap, 1.0 + _ULP_PAD)
-    feats = _feats_from_cols(dp, w.shape[1], tcap=tcap)
-    occ0 = skip_p.astype(jnp.int32)
-    S, hull, bbox, first, cull_lo, cull_hi, w = _hier_setup(
-        lo, hi, dirs_tiled, alive, None, w, cs=cs)
-    keys, counts = _tile_candidate_keys(cull_lo, cull_hi, dirs_tiled,
-                                        alive=alive)
-    occ, steps = _walk_pallas(
-        counts, keys, feats, w, occ0, hull=hull, bbox=bbox, first=first,
-        tcap_col=4, mode="any_dest", stream=_use_stream(w),
-        interpret=_interpret(), S=S)
-    steps = steps[0, 0]
-    result = (occ.reshape(-1)[:R] == 1) & ~skip
-    if perm is not None:
-        # Scatter back to the caller's ray order (one int column).
-        result = jnp.zeros((R,), jnp.int32).at[perm].set(
-            result.astype(jnp.int32)) == 1
-    if with_counts:
-        cnts = {"traversal_steps": steps, "mt_block_visits": steps,
-                "mt_pairs": steps * tile * cs.cluster_size}
-        return result, cnts
-    return result

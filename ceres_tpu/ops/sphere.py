@@ -65,10 +65,9 @@ def normal_at(point, centers, sphere_id):
 
 # ---------------------------------------------------------------------------
 # Column (structure-of-arrays) forms for the megakernel render pipeline:
-# every op is (R, S)- or (R,)-shaped with spheres on the lane axis — an
-# (R, 3) vector form would pad 3 -> 128 lanes (see megakernel docstrings).
-# Winner attributes come from a one-hot (R, S) @ (S,) matvec instead of a
-# 1-D gather (which lowers to a scalar loop on TPU).
+# every op is (R, S)- or (R,)-shaped with no size-3 minor axis. Winner
+# attributes come from a one-hot (R, S) @ (S,) matvec instead of a 1-D
+# gather.
 # ---------------------------------------------------------------------------
 
 def _pairs_cols(o_cols, d_cols, centers, radii, tmin, tmax):
@@ -113,8 +112,12 @@ def closest_hit_common_origin_cols(eye, dir_cols, centers, radii,
     S = centers.shape[0]
     onehot = (jax.lax.broadcasted_iota(jnp.int32, (R, S), 1)
               == sid[:, None]).astype(t.dtype)
-    cg = [onehot @ centers[:, a] for a in range(3)]          # (R,) matvecs
-    rg = jnp.maximum(onehot @ radii, 1e-30)
+    # One-hot winner gather as matvecs, pinned to true f32: a TF32
+    # product would round centres and radii to 10 mantissa bits.
+    hi = jax.lax.Precision.HIGHEST
+    cg = [jnp.matmul(onehot, centers[:, a], precision=hi)
+          for a in range(3)]                                  # (R,) matvecs
+    rg = jnp.maximum(jnp.matmul(onehot, radii, precision=hi), 1e-30)
     t_safe = jnp.where(mask, t_best, 0.0)
     nrm = tuple(
         jnp.where(mask, (eye[a] + t_safe * dir_cols[a] - cg[a]) / rg, 0.0)

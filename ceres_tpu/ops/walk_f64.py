@@ -1,7 +1,8 @@
-"""All-float64 cluster walk: the tile walk lifted to plain JAX.
+"""The tile walk in plain JAX: the all-float64 search, and the plain
+version of the walk kernel.
 
 The megakernel's ``-d`` mode is ACCELERATED f64: the winner/occlusion
-search runs the f32 Pallas datapath and observables are recomputed in
+search runs the f32 walk kernel and observables are recomputed in
 f64 at the winners (megakernel._detach_f32). That is tight on ordinary
 scenes but the winner itself can be wrong on pathological geometry —
 coordinate spans beyond 2^24, or sheets closer together than f32
@@ -23,9 +24,13 @@ is no understatement source: entries are conservatively widened, the
 carried t is exact). Tiles are processed in chunks of _CHUNK so the
 per-step (chunk, R, C) f64 intermediates stay bounded.
 
-This is a CORRECTNESS fallback, not a performance path: f64 has no MXU
-on TPU, so the math runs on the VPU at f64 emulation cost. Requires
-jax_enable_x64.
+The walk is dtype-generic: it searches in the ClusterSet's dtype. The
+``*_f64`` entry points are the exact-double mode (they require a float64
+ClusterSet and jax_enable_x64); ``closest_search``/``any_hit`` in
+float32 are the plain version XLA compiles of what the Pallas walk
+kernel does — its test reference and the baseline
+the kernel's speed is measured against (benchmarks/walk_ab.py). Its
+products pin Precision.HIGHEST, so float32 never runs as TF32.
 """
 
 from __future__ import annotations
@@ -38,7 +43,6 @@ import jax.numpy as jnp
 from ceres_tpu.ops import megakernel as mk
 
 _CHUNK = 64          # tiles per lockstep frontier (bounds f64 intermediates)
-_DEST_EPS = mk._DEST_EPS
 
 
 def _cross_cols(u, v):
@@ -109,7 +113,7 @@ def _walk(cs, shift, order, ent_sorted, counts, d3, o3, alive, tcap,
     data = {k: v.reshape((-1, _CHUNK) + v.shape[1:])
             for k, v in data.items()}
     dtype = cs.p0.dtype
-    any_mode = mode in ("any", "any_dest")
+    any_mode = mode in ("any", "any_seg")
 
     def mt_step(cid, ch):
         """f64 MT of every (active tile's candidate cluster) x rays.
@@ -124,7 +128,8 @@ def _walk(cs, shift, order, ent_sorted, counts, d3, o3, alive, tcap,
         cu = _cross_cols(p0, e2)
         cv = _cross_cols(p0, e1)
         d = ch["d3"]                                # (_CHUNK, TILE, 3)
-        mm = functools.partial(jnp.einsum, "tra,tca->trc")
+        mm = functools.partial(jnp.einsum, "tra,tca->trc",
+                               precision=jax.lax.Precision.HIGHEST)
         nu = mm(d, cu)
         nv = mm(d, cv)
         nd = mm(d, nn)
@@ -139,11 +144,9 @@ def _walk(cs, shift, order, ent_sorted, counts, d3, o3, alive, tcap,
                       jnp.asarray(-1.0, dtype))
         uvw = jnp.minimum(jnp.minimum(nu * s, nv * s),
                           (nd - nu - nv) * s)
-        if mode == "any_dest":
-            win = ((nt - (1.0 - _DEST_EPS) * nd) * s <= 0) & (nt * s >= 0)
-            ok = (uvw >= 0) & (nd != 0) & win
-        else:
-            ok = (jnp.minimum(uvw, nt * s) >= 0) & (nd != 0)
+        ok = (jnp.minimum(uvw, nt * s) >= 0) & (nd != 0)
+        if mode == "any_seg":
+            ok = ok & ((nt - nd) * s <= 0)                 # t <= 1
         t = jnp.where(ok, nt / jnp.where(nd != 0, nd, 1.0), jnp.inf)
         if window:
             t = jnp.where((t >= ch["tmin"][..., None])
@@ -216,12 +219,36 @@ def _walk(cs, shift, order, ent_sorted, counts, d3, o3, alive, tcap,
     return out, jnp.sum(steps)
 
 
-def closest_search_f64(cs, eye, dir_cols, tmin=None, tmax=None):
-    """All-f64 winner search; drop-in for megakernel._closest_search.
+def _require_f64(cs):
+    """The exact mode searches in the ClusterSet's dtype: refuse a float32
+    one (the accelerated path's usual artifact) instead of silently
+    running the whole 'Scalar=double' search in float32."""
+    if cs.p0.dtype != jnp.float64:
+        raise ValueError(f"the exact-f64 walk needs a float64 ClusterSet, "
+                         f"got {cs.p0.dtype} (build it from a float64 "
+                         f"soup with jax_enable_x64)")
 
-    Returns (packed slot ids (R,), counters dict). ``cs``/``eye``/rays
-    must be float64 (jax_enable_x64); the structure is the SAME
-    ClusterSet the accelerated path uses — only the search math changes.
+
+def closest_search_f64(cs, eye, dir_cols, tmin=None, tmax=None):
+    """All-f64 winner search; drop-in for megakernel._closest_search."""
+    _require_f64(cs)
+    return closest_search(cs, eye, dir_cols, tmin=tmin, tmax=tmax)
+
+
+def any_hit_f64(cs, origin_shift, origin_cols, dir_cols, skip=None,
+                segment=False):
+    """All-f64 generic-ray occlusion (megakernel.any_hit semantics)."""
+    _require_f64(cs)
+    return any_hit(cs, origin_shift, origin_cols, dir_cols, skip=skip,
+                   segment=segment)
+
+
+def closest_search(cs, eye, dir_cols, tmin=None, tmax=None):
+    """Winner search in the ClusterSet's dtype.
+
+    Returns (packed slot ids (R,), counters dict). ``eye`` and the rays
+    must share that dtype; the structure is the SAME ClusterSet the
+    accelerated path uses — only the search math changes.
     """
     cs = jax.tree.map(jax.lax.stop_gradient, cs)
     eye = jax.lax.stop_gradient(eye)
@@ -252,8 +279,10 @@ def closest_search_f64(cs, eye, dir_cols, tmin=None, tmax=None):
                                   "mt_block_visits": steps}
 
 
-def any_hit_f64(cs, origin_shift, origin_cols, dir_cols, skip=None):
-    """All-f64 generic-ray occlusion (megakernel.any_hit semantics)."""
+def any_hit(cs, origin_shift, origin_cols, dir_cols, skip=None,
+            segment=False):
+    """Generic-ray occlusion (megakernel.any_hit semantics; ``segment``
+    keeps only occluders at t <= 1)."""
     cs = jax.tree.map(jax.lax.stop_gradient, cs)
     R = dir_cols[0].shape[0]
     o = tuple(origin_cols[a] - origin_shift[a] for a in range(3))
@@ -268,30 +297,12 @@ def any_hit_f64(cs, origin_shift, origin_cols, dir_cols, skip=None):
     op = tuple(mk._pad_rays(c) for c in o)
     tcap = mk._ray_tcap(root_lo - origin_shift, root_hi - origin_shift,
                         op, dp)
+    if segment:
+        tcap = jnp.minimum(tcap, 1.0 + mk._ULP_PAD)
     occ0 = skip_p.astype(jnp.int32).reshape(-1, mk.TILE)
     occ, steps = _walk(cs, origin_shift, order, ent, counts, d3, o3,
                        alive, tcap.reshape(-1, mk.TILE), occ0=occ0,
-                       mode="any")
+                       mode="any_seg" if segment else "any")
     return ((occ.reshape(-1)[:R] > 0) & ~skip,
             {"traversal_steps": steps, "mt_block_visits": steps})
 
-
-def any_hit_to_point_f64(cs, dest, point_cols, skip=None):
-    """All-f64 common-destination occlusion (any_hit_to_point semantics)."""
-    cs = jax.tree.map(jax.lax.stop_gradient, cs)
-    R = point_cols[0].shape[0]
-    d = tuple(point_cols[a] - dest[a] for a in range(3))
-    if skip is None:
-        skip = jnp.zeros((R,), bool)
-    skip_p = mk._pad_rays(skip)
-    order, ent, counts, d3, _, alive = _prepass(cs, dest, d, None, ~skip)
-    root_lo, root_hi = mk._scene_root(cs)
-    dp = tuple(mk._pad_rays(c) for c in d)
-    tcap = mk._ray_tcap(root_lo - dest, root_hi - dest, None, dp)
-    tcap = jnp.minimum(tcap, 1.0 + mk._ULP_PAD)
-    occ0 = skip_p.astype(jnp.int32).reshape(-1, mk.TILE)
-    occ, steps = _walk(cs, dest, order, ent, counts, d3, None, alive,
-                       tcap.reshape(-1, mk.TILE), occ0=occ0,
-                       mode="any_dest")
-    return ((occ.reshape(-1)[:R] > 0) & ~skip,
-            {"traversal_steps": steps, "mt_block_visits": steps})

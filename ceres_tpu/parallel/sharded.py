@@ -1,13 +1,13 @@
-"""shard_map rendering over a TPU device mesh.
+"""shard_map rendering over a device mesh.
 
 The reference's only parallelism is one OpenMP ``parallel for`` over the
-pixel grid (include/render.hpp:104). The TPU-native mapping (SURVEY.md §2
+pixel grid (include/render.hpp:104). The mapping here (SURVEY.md §2
 parallelism table):
 
-  * rays/pixels  -> "rays" mesh axis: each chip renders a contiguous block
+  * rays/pixels  -> "rays" mesh axis: each device renders a contiguous block
     of image rows, generating its rays on-device from its row offset (no
     host->device ray shipping). Geometry + camera are replicated, so the
-    backward pass psums scene-parameter gradients across chips — XLA
+    backward pass psums scene-parameter gradients across devices — XLA
     inserts and overlaps the collectives.
   * frames       -> "frames" mesh axis: animation keyframes batched across
     a second mesh dimension (the reference renders frames serially,
@@ -74,10 +74,15 @@ def _render_rows(verts, faces, camera, sun, row0, h_local, config,
                              with_normals=config.mode == "smooth")
     dirs_hw = camera_rays_rows(camera, config.width, config.height,
                                row0, h_local)
+    # The last shard's rows past the image bottom are padding: zero
+    # directions make them inert (no hit), and they are not counted.
+    live = (row0 + jnp.arange(h_local, dtype=dirs_hw.dtype)) < config.height
+    dirs_hw = jnp.where(live[:, None, None], dirs_hw, 0.0)
+    n_live = jnp.sum(live) * config.width
     if config.backend == "megakernel":
         # Pixel-block ray order (ceres_tpu.utils.tiling): raster-order
-        # 512-ray tiles span most of a scanline and overlap many clusters;
-        # compact blocks measured ~4x faster per ray.
+        # 512-ray tiles span most of a scanline and overlap many
+        # clusters; compact blocks cull far more.
         from ceres_tpu.utils import tiling
 
         dirs = tiling.swizzle(dirs_hw)
@@ -85,12 +90,12 @@ def _render_rows(verts, faces, camera, sun, row0, h_local, config,
                                         clusters=clusters, spheres=spheres,
                                         table_cols=table_cols)
         color = tiling.unswizzle(color, h_local, config.width)
-        stats["rays"] = stats["rays"] - (dirs.shape[0]
-                                         - h_local * config.width)
+        stats["rays"] = stats["rays"] - (dirs.shape[0] - n_live)
         return color, stats
     dirs = dirs_hw.reshape(-1, 3)
     color, stats = render_wavefront(soup, camera, sun, dirs, config,
                                     clusters=clusters, spheres=spheres)
+    stats["rays"] = stats["rays"] - (dirs.shape[0] - n_live)
     return color.reshape(h_local, config.width, 3), stats
 
 
@@ -137,7 +142,10 @@ def _render_sharded_jit(vertices, faces, camera, sun, config, mesh,
         mesh=mesh,
         in_specs=(P(), P(), P(), P(), P("rays"), P()),
         out_specs=(P("rays"), P()),
-        check_vma=False,  # pallas_call outputs carry no vma metadata
+        # No vma checking: the walk kernel's pallas_call declares its
+        # outputs without varying-axis types, compiled or interpreted
+        # (and the cluster build's loops start from unvarying carries).
+        check_vma=False,
     )
     def fn(verts, faces_, cam, sun_, row0_shard, sph):
         # Spheres are replicated like the mesh: the dense per-shard pair
@@ -145,8 +153,9 @@ def _render_sharded_jit(vertices, faces, camera, sun, config, mesh,
         color, stats = _render_rows(verts, faces_, cam, sun_,
                                     row0_shard[0], h_local, config,
                                     spheres=sph)
-        stats = jax.tree.map(
-            lambda x: jax.lax.psum(x, ("frames", "rays")), stats)
+        # Rows are split over "rays" only: every "frames" replica holds
+        # the same image, so the counts are summed over "rays" alone.
+        stats = jax.tree.map(lambda x: jax.lax.psum(x, "rays"), stats)
         return color, stats
 
     image, stats = fn(vertices, faces, camera, sun, row0, spheres)
@@ -202,13 +211,15 @@ def _render_frames_jit(vertices, faces, camera, sun, frame_transforms,
         mesh=mesh,
         in_specs=(P(), P(), P(), P(), P("frames"), P("rays"), P(), P()),
         out_specs=(P("frames", "rays"), P()),
-        check_vma=False,  # pallas_call outputs carry no vma metadata
+        # No vma checking: the walk kernel's pallas_call declares its
+        # outputs without varying-axis types, compiled or interpreted
+        # (and the cluster build's loops start from unvarying carries).
+        check_vma=False,
     )
     def fn(verts, faces_, cam, sun_, tf_shard, row0_shard, sph, cs_pre):
         # Geometry is static across frames: build the soup and the
         # traversal clusters ONCE outside the frame loop (XLA does not
-        # hoist the LBVH build out of lax.map on its own — measured as
-        # the dominant per-frame cost).
+        # hoist the LBVH build out of lax.map on its own).
         soup = triangle_soup(verts, faces_,
                              with_normals=config.mode == "smooth")
         clusters = None
@@ -217,9 +228,9 @@ def _render_frames_jit(vertices, faces, camera, sun, frame_transforms,
             from ceres_tpu.accel import clusters as cl
             from ceres_tpu.render.renderer import prepare_winner_table
 
-            # Prebuilt (quality-cut) clusters win 7-24% per frame
-            # (benchmarks/builder_ab.json); otherwise the jittable
-            # on-device treelet build, hoisted before the frame loop.
+            # Prebuilt (quality-cut) clusters when given; otherwise the
+            # jittable on-device treelet build, hoisted before the frame
+            # loop.
             clusters = cs_pre if cs_pre is not None else \
                 cl.build_clusters_treelet(
                     jax.tree.map(jax.lax.stop_gradient, soup))
@@ -231,7 +242,9 @@ def _render_frames_jit(vertices, faces, camera, sun, frame_transforms,
             # Per-frame rigid transform applied to camera + sun (the
             # turntable of anim.cpp:87-89 generalized to any keyframe
             # track). Spheres are scene geometry: static, like the mesh.
-            cam_f = Camera(eye=tf(cam.eye), dir=tf.a @ cam.dir,
+            cam_f = Camera(eye=tf(cam.eye),
+                           dir=jnp.matmul(tf.a, cam.dir,
+                                          precision=jax.lax.Precision.HIGHEST),
                            up=cam.up, fov=cam.fov)
             sun_f = tf(sun_)
             color, stats = _render_rows(verts, faces_, cam_f, sun_f,
@@ -297,7 +310,10 @@ def _render_deforming_jit(vertices_frames, faces, camera, sun, config, mesh,
         mesh=mesh,
         in_specs=(P(), P(), P(), P(), P("rays"), P()),
         out_specs=(P(None, "rays"), P()),
-        check_vma=False,  # pallas_call outputs carry no vma metadata
+        # No vma checking: the walk kernel's pallas_call declares its
+        # outputs without varying-axis types, compiled or interpreted
+        # (and the cluster build's loops start from unvarying carries).
+        check_vma=False,
     )
     def fn(vframes, faces_, cam, sun_, row0_shard, sph):
         from ceres_tpu.accel import clusters as cl
@@ -325,8 +341,9 @@ def _render_deforming_jit(vertices_frames, faces, camera, sun, config, mesh,
                                 clusters=cs_f, spheres=sph)
 
         colors, stats = jax.lax.map(one_frame, vframes)
-        stats = jax.tree.map(
-            lambda x: jax.lax.psum(jnp.sum(x), ("frames", "rays")), stats)
+        # Frames run in sequence on every shard; rows split over "rays".
+        stats = jax.tree.map(lambda x: jax.lax.psum(jnp.sum(x), "rays"),
+                             stats)
         return colors, stats
 
     frames, stats = fn(vertices_frames, faces, camera, sun, row0, spheres)
@@ -413,6 +430,9 @@ def _render_prim_sharded_jit(vertices, faces, vn, camera, sun, config, mesh,
         mesh=flat,
         in_specs=(P(), P("prims"), P(), P(), P(), P(), P()),
         out_specs=(P(), P()),
+        # No vma checking: the walk kernel's pallas_call declares its
+        # outputs without varying-axis types, compiled or interpreted
+        # (and the cluster build's loops start from unvarying carries).
         check_vma=False,
     )
     def fn(verts, faces_shard, vn_, cam, sun_, dirs_, sph):

@@ -10,9 +10,9 @@ Pipeline parity with the reference render() (include/render.hpp:86-156):
      reference, which uses tmax = +inf) -> black.
   5. Otherwise Gouraud smooth shading from the corner vertex normals.
 
-TPU-first structure: rays are a flat wavefront, intersection is the matmul
+Structure: rays are a flat wavefront, intersection is the matmul
 Möller-Trumbore (ceres_tpu.ops.intersect) — either brute-force (reference
-backend) or the cluster-streaming Pallas megakernel (fast backend). The
+backend) or the cluster walk of ceres_tpu.ops.megakernel (fast backend). The
 whole pipeline is jittable and differentiable w.r.t. vertices, camera and
 sun position (visibility/hit-ids are detached, the standard differentiable
 rendering convention).
@@ -61,8 +61,8 @@ class RenderConfig:
     #     ((1-u-v, u, v), hit point = eye + t*view).
     # (2) shadow rays: the reference uses tmax = inf (render.hpp:134-141),
     #     so geometry BEYOND the sun also darkens; the default runs the
-    #     physically-correct [point, sun] segment test (which is also the
-    #     common-origin-from-the-sun fast path on the megakernel backend).
+    #     physically-correct [point, sun] segment test on the megakernel
+    #     backend.
     # This flag exists to make reference parity bit-testable
     # (tests/test_reference_compat.py checks it against a PPM rendered by
     # the actual C++ reference).
@@ -70,10 +70,10 @@ class RenderConfig:
     # ALL-f64 traversal on the megakernel backend (requires float64
     # inputs + jax_enable_x64): winner/occlusion search runs the
     # plain-JAX f64 cluster walk (ceres_tpu.ops.walk_f64) instead of the
-    # accelerated f32 Pallas datapath — the reference's Scalar=double
-    # semantics with no f32 anywhere in the search. Slower (f64 has no
-    # MXU); for scenes where f32 search resolution is insufficient
-    # (coordinate spans > 2^24, sheets closer than f32 ulp).
+    # f32 walk kernel — the reference's Scalar=double semantics with no
+    # f32 anywhere in the search. Slower; for scenes where f32 search
+    # resolution is insufficient (coordinate spans > 2^24, sheets closer
+    # than f32 ulp).
     f64_exact: bool = False
 
 
@@ -122,10 +122,8 @@ def _payload_cols(soup: TriangleSoup, config: RenderConfig):
     """The per-triangle shading payload columns for this config.
 
     Payload is a list of per-triangle COLUMNS (each (T,)): the winner
-    gather is per-column, keeping every gathered array dense — a packed
-    (T, P) payload row would be lane-padded P -> 128 by XLA and each
-    downstream column slice re-streams the whole padded gather output
-    (~21 ms/frame measured at 1080p). Returns (payload, n_pay) where
+    gather is per-column, keeping every gathered array a dense column.
+    Returns (payload, n_pay) where
     n_pay is the index of the first compat-vertex column in the
     RETURNED winner payload (face normal x3 prepended by
     normal_cols=True).
@@ -151,14 +149,11 @@ def prepare_winner_table(soup: TriangleSoup, clusters,
 
     Pair of the prebuilt ``clusters`` fast lane (the reference builds
     its BVH before the frame loop, anim.cpp:62-66): the winner-gather
-    table scales with the scene (N_c * C rows). NOTE measured nuance:
-    inside a jitted fori_loop frame loop XLA already hoists the table
-    construction (1.27M-tri frame identical, 603 vs 602 ms, with and
-    without this), so the win is for EAGER per-frame callers and
-    explicitness; the remaining ~100 ms/frame of winner epilogue there
-    is the per-ray random row GATHER over the scene-sized table, which
-    no hoisting removes. Build once beside the clusters and pass to
-    render_pipeline/render_wavefront(..., table_cols=...).
+    table scales with the scene (N_c * C rows). Inside a jitted frame
+    loop XLA may hoist the construction itself; this makes the hoist
+    explicit and serves eager per-frame callers. Build once beside the
+    clusters and pass to render_pipeline/render_wavefront(...,
+    table_cols=...).
     """
     from ceres_tpu.ops import megakernel
 
@@ -183,10 +178,9 @@ def render_wavefront_cols(
     """Column-form wavefront render -> (3-tuple of (R,) colors, stats).
 
     The megakernel fast path: all per-ray math is structure-of-arrays
-    ((R,) columns) — (R, 3) arrays put the 3-vector on the 128-lane axis
-    and waste 42x of the VPU (measured ~35 ms/frame of normalize/dot
-    fusions at 1080p). Everything shading needs per hit rides the single
-    winner row-gather as a payload (megakernel._winner_table).
+    ((R,) columns, no minor dimension of size 3). Everything shading
+    needs per hit rides the single winner row-gather as a payload
+    (megakernel._winner_table).
     """
     from ceres_tpu.ops import megakernel
 
@@ -279,22 +273,16 @@ def render_wavefront_cols(
                 clusters=clusters, with_counts=want_counts,
                 exact_f64=config.f64_exact)
         else:
-            # Physically-correct segment test, and the fast path: all
-            # shadow rays share the sun, so they run as a common-origin
-            # wavefront FROM the sun (K=4 features, tight tile hulls).
-            # Miss pixels ride along as skip-masked lanes. NOTE a
-            # stable-partition compaction of the wavefront to hit rays
-            # was tried and REJECTED: the argsort + three 1-D point
-            # gathers + occlusion scatter cost ~61 ms/frame at 1080p on
-            # TPU (1-D gathers lower to scalar loops; sorts are bitonic
-            # passes) against ~5 ms of recoverable mixed-tile lane
-            # waste. Skip-masked lanes never extend a tile's prune, and
-            # all-miss tiles exit the walk immediately, so the waste is
-            # bounded to mixed silhouette tiles.
-            res2 = megakernel.any_hit_to_point(
-                soup, sun_position, point, skip=~mask,
+            # Physically-correct segment test: from the hit point to the
+            # sun (t = 1 at the sun), generic-ray form, which stays exact
+            # to f32 however far the sun is (see megakernel.any_hit).
+            # Miss pixels ride along
+            # as skip-masked lanes: they never extend a tile's prune, and
+            # all-miss tiles exit the walk at once.
+            res2 = megakernel.any_hit(
+                soup, _scene_center(soup), point, sl, skip=~mask,
                 clusters=clusters, with_counts=want_counts,
-                exact_f64=config.f64_exact)
+                exact_f64=config.f64_exact, segment=True)
         occluded, counts2 = res2 if want_counts else (res2, None)
         if spheres is not None:
             # Spheres occlude too (both triangle- and sphere-hit points).
@@ -543,9 +531,8 @@ def render(
 ):
     """User-facing render call. kwargs override RenderConfig fields.
 
-    Each call builds the acceleration structure for the given mesh (the
-    dragon's treelet build is ~100 ms on a v5e — comparable to its
-    84 ms frame). For FRAME LOOPS over static geometry, hoist it: call
+    Each call builds the acceleration structure for the given mesh. For
+    FRAME LOOPS over static geometry, hoist it: call
     render_pipeline with a prebuilt ClusterSet (clusters=...), or use
     the animation / sharded entry points, which hoist the build outside
     their frame loops themselves — the reference's own shape (BVH built
@@ -555,7 +542,7 @@ def render(
     axis (``Scalar`` float/double, anim.cpp:154-158): pass float64
     vertices (with jax x64 enabled) for a double-precision render. On
     the megakernel backend, float64 runs the ACCELERATED path: winner /
-    occlusion search on the f32 kernel datapath, with every observable
+    occlusion search on the f32 walk kernel, with every observable
     value — hit (t, u, v), shading, gradients — recomputed in float64
     at the winners (megakernel._detach_f32). Deviations from an all-f64
     traversal are confined to winner tie-breaks within f32 resolution.

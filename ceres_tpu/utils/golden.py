@@ -4,7 +4,7 @@ An *independent* implementation of the reference render path
 (include/render.hpp:86-156) used only in tests. It follows the C++ structure
 directly — per-pair Möller-Trumbore with ``c = p0 - origin`` and explicit
 cross products (triangle.hpp:95-115) — rather than the factored matmul
-formulation the TPU path uses, so it cross-checks both the math conventions
+formulation the accelerated path uses, so it cross-checks both the math conventions
 and the factored form's numerics. float64 by default for a tight oracle.
 """
 

@@ -128,15 +128,16 @@ def test_exact_occlusion_matches_kernel(rng):
         soup = triangle_soup(jnp.asarray(verts), jnp.asarray(faces),
                              with_normals=False)
         pts = rng.standard_normal((R, 3)) * 0.1
-        dest = jnp.asarray([30.0, 45.0, -20.0])
-        a = np.asarray(mk.any_hit_to_point(soup, dest, jnp.asarray(pts)))
-        b = np.asarray(mk.any_hit_to_point(soup, dest, jnp.asarray(pts),
-                                           exact_f64=True))
+        seg = jnp.asarray([30.0, 45.0, -20.0]) - jnp.asarray(pts)
+        center = jnp.mean(soup.p0, axis=0)
+        a = np.asarray(mk.any_hit(soup, center, jnp.asarray(pts), seg,
+                                  segment=True))
+        b = np.asarray(mk.any_hit(soup, center, jnp.asarray(pts), seg,
+                                  segment=True, exact_f64=True))
         assert (a == b).mean() > 0.995   # grazing accepts may flip
 
         dirs = rng.standard_normal((R, 3))
         dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-        center = jnp.mean(soup.p0, axis=0)
         a2 = np.asarray(mk.any_hit(soup, center, jnp.asarray(pts),
                                    jnp.asarray(dirs)))
         b2 = np.asarray(mk.any_hit(soup, center, jnp.asarray(pts),

@@ -1,4 +1,4 @@
-"""Megakernel (Pallas, interpret mode on CPU) vs brute force and golden.
+"""Megakernel (Pallas walk interpreted on the CPU) vs brute force and golden.
 
 Mirrors SURVEY.md §4 item 3: traversal equivalence — the accelerated path
 must reproduce the exhaustive all-triangles intersection on every ray.
@@ -125,9 +125,9 @@ class TestAnyHit:
         assert not np.asarray(occ)[np.asarray(skip)].any()
 
 
-class TestAnyHitToPoint:
-    """The common-destination (shadow) fast path: segment occlusion
-    between each point and one shared light position."""
+class TestSegmentShadow:
+    """The renderer's shadow query: segment occlusion between each point
+    and one shared light position (any_hit(..., segment=True))."""
 
     def test_matches_generic_when_light_outside_scene(self, rng):
         # With the light outside the scene bounds, "anything along the ray
@@ -143,7 +143,8 @@ class TestAnyHitToPoint:
         dirs = dirs / jnp.linalg.norm(dirs, axis=-1, keepdims=True)
         center = jnp.mean(soup.p0, axis=0)
         occ_generic = mk.any_hit(soup, center, points, dirs)
-        occ_seg = mk.any_hit_to_point(soup, dest, points)
+        occ_seg = mk.any_hit(soup, center, points, dest[None, :] - points,
+                             segment=True)
         # The two parameterizations round differently at triangle edges;
         # classification must agree except at a vanishing set of edge rays.
         agree = np.asarray(occ_generic) == np.asarray(occ_seg)
@@ -163,7 +164,8 @@ class TestAnyHitToPoint:
         dest = jnp.asarray([0.0, 5.0, 0.0], jnp.float32)  # below the tri
         up = jnp.asarray([[0.0, 1.0, 0.0]], jnp.float32)
         occ_generic = mk.any_hit(soup, jnp.zeros(3), points, up)
-        occ_seg = mk.any_hit_to_point(soup, dest, points)
+        occ_seg = mk.any_hit(soup, jnp.zeros(3), points,
+                             dest[None, :] - points, segment=True)
         assert bool(np.asarray(occ_generic)[0])       # tmax=inf: darkened
         assert not bool(np.asarray(occ_seg)[0])       # segment: lit
 
@@ -174,7 +176,8 @@ class TestAnyHitToPoint:
                              with_normals=False)
         points = jnp.asarray([[0.0, 0.0, 0.0], [5.0, 0.0, 0.0]], jnp.float32)
         dest = jnp.asarray([0.0, 5.0, 0.0], jnp.float32)
-        occ = np.asarray(mk.any_hit_to_point(soup, dest, points))
+        occ = np.asarray(mk.any_hit(soup, jnp.zeros(3), points,
+                                    dest[None, :] - points, segment=True))
         assert bool(occ[0])          # triangle sits between point and light
         assert not bool(occ[1])      # offset receiver: clear line
 
@@ -185,21 +188,20 @@ class TestAnyHitToPoint:
             rng.standard_normal((R, 3)).astype(np.float32) * 0.1)
         dest = jnp.asarray([30.0, 45.0, -20.0], jnp.float32)
         skip = jnp.asarray(rng.random(R) < 0.5)
-        occ = mk.any_hit_to_point(soup, dest, points, skip=skip)
+        occ = mk.any_hit(soup, jnp.mean(soup.p0, axis=0), points,
+                         dest[None, :] - points, skip=skip, segment=True)
         assert not np.asarray(occ)[np.asarray(skip)].any()
 
     def test_light_inside_scene_occluder_behind_light(self):
-        # Regression: an IN-SCENE light (dest inside the candidate
-        # cluster's AABB, so phase-1 culling cannot reject the cluster)
-        # with an occluder BEHIND the light (t < 0 on the light->receiver
-        # line). The accept needs the t >= 0 lower bound — without it the
-        # behind triangle passes uvw >= 0 and t <= 1 - eps and falsely
-        # shadows every receiver on the light's far side. Light at
-        # (0, 5, 0); receivers straight below at the origin. Triangles
-        # (all crossed by the x=0, z=0 line, all in ONE shared cluster):
-        #   y = 10: behind the light (t = -1)        -> must NOT shadow
-        #   y = -2: beyond the receiver (t = 1.4)    -> must NOT shadow
-        #   y =  2: strictly between (t = 0.6)       -> must shadow
+        # An IN-SCENE light (inside the candidate cluster's AABB, so
+        # phase-1 culling cannot reject the cluster) with occluders on
+        # both sides of the segment. The accept needs both bounds,
+        # 0 <= t <= 1. Light at (0, 5, 0); receivers straight below at
+        # the origin. Triangles (all crossed by the x=0, z=0 line, all in
+        # ONE shared cluster):
+        #   y = 10: behind the light (t = 2)         -> must NOT shadow
+        #   y = -2: behind the receiver (t = -0.4)   -> must NOT shadow
+        #   y =  2: strictly between (t = 0.4)       -> must shadow
         def scene(*ys):
             tri = np.asarray([[-1, 0, -1], [1, 0, -1], [0, 0, 1]],
                              np.float32)
@@ -211,12 +213,44 @@ class TestAnyHitToPoint:
 
         dest = jnp.asarray([0.0, 5.0, 0.0], jnp.float32)   # in scene AABB
         recv = jnp.asarray([[0.0, 0.0, 0.0]], jnp.float32)
-        occ_clear = np.asarray(
-            mk.any_hit_to_point(scene(10.0, -2.0), dest, recv))
+        seg = dest[None, :] - recv
+        occ_clear = np.asarray(mk.any_hit(scene(10.0, -2.0), jnp.zeros(3),
+                                          recv, seg, segment=True))
         assert not bool(occ_clear[0])    # behind + beyond: lit
-        occ_blocked = np.asarray(
-            mk.any_hit_to_point(scene(10.0, -2.0, 2.0), dest, recv))
+        occ_blocked = np.asarray(mk.any_hit(
+            scene(10.0, -2.0, 2.0), jnp.zeros(3), recv, seg, segment=True))
         assert bool(occ_blocked[0])      # the between triangle shadows
+
+    @pytest.mark.parametrize("hier", [False, True])
+    def test_far_light_watertight(self, monkeypatch, hier):
+        # A watertight sheet of 3,200 small triangles between every
+        # receiver and a light ~10,000 sheet widths away: each segment
+        # crosses the sheet, so every receiver is in shadow. Rays cast
+        # FROM such a light form numerators as differences of terms
+        # ~ (light distance x triangle size) and leave cracks along
+        # shared edges in f32 (about 1 receiver in 1,000 here); the
+        # segment form must leave none.
+        if hier:
+            monkeypatch.setattr(mk, "_HIER_MIN_CLUSTERS", 1)
+        n = 40
+        g = np.linspace(-1.0, 1.0, n + 1, dtype=np.float32)
+        gx, gz = np.meshgrid(g, g, indexing="ij")
+        verts = np.stack([gx, np.ones_like(gx), gz], -1).reshape(-1, 3)
+        idx = np.arange((n + 1) ** 2).reshape(n + 1, n + 1)
+        a, b = idx[:-1, :-1].ravel(), idx[1:, :-1].ravel()
+        c, d = idx[1:, 1:].ravel(), idx[:-1, 1:].ravel()
+        faces = np.concatenate([np.stack([a, b, c], -1),
+                                np.stack([a, c, d], -1)]).astype(np.int32)
+        soup = triangle_soup(jnp.asarray(verts), jnp.asarray(faces),
+                             with_normals=False)
+        rng = np.random.default_rng(7)
+        recv = rng.uniform(-0.4, 0.4, (4000, 3)).astype(np.float32)
+        recv[:, 1] = 0.0
+        light = np.asarray([400.0, 20000.0, -260.0], np.float32)
+        occ = np.asarray(mk.any_hit(
+            soup, jnp.mean(soup.p0, axis=0), jnp.asarray(recv),
+            jnp.asarray(light[None, :] - recv), segment=True))
+        assert occ.all(), f"{(~occ).sum()} receivers lit through the sheet"
 
 
 class TestTWindow:
@@ -322,32 +356,19 @@ class TestHierarchicalWalk:
         hier = np.asarray(mk.any_hit(soup, center, origins, dirs))
         np.testing.assert_array_equal(flat, hier)
 
-    def test_any_dest_matches_flat(self, rng, monkeypatch):
+    def test_any_seg_matches_flat(self, rng, monkeypatch):
         soup = _random_scene(rng, V=200, F=400)
         R = 400
         points = jnp.asarray(
             rng.standard_normal((R, 3)).astype(np.float32) * 0.1)
-        dest = jnp.asarray([30.0, 45.0, -20.0], jnp.float32)
-        flat = np.asarray(mk.any_hit_to_point(soup, dest, points))
+        seg = jnp.asarray([30.0, 45.0, -20.0], jnp.float32)[None] - points
+        center = jnp.mean(soup.p0, axis=0)
+        flat = np.asarray(mk.any_hit(soup, center, points, seg,
+                                     segment=True))
         self._force_hier(monkeypatch)
-        hier = np.asarray(mk.any_hit_to_point(soup, dest, points))
+        hier = np.asarray(mk.any_hit(soup, center, points, seg,
+                                     segment=True))
         np.testing.assert_array_equal(flat, hier)
-
-    def test_streamed_hier_matches(self, rng, monkeypatch):
-        # Two-level walk + the double-buffered super-granular DMA path.
-        soup = _random_scene(rng, V=200, F=400)
-        eye = jnp.asarray([0.0, 0.0, -4.0], jnp.float32)
-        dirs = _random_dirs(rng, 600)
-        flat = mk.closest_hit_common_origin(soup, eye, dirs)
-        self._force_hier(monkeypatch)
-        monkeypatch.setattr(mk, "_RESIDENT_W_BYTES", 0)
-        hier = mk.closest_hit_common_origin(soup, eye, dirs)
-        np.testing.assert_array_equal(np.asarray(flat.mask),
-                                      np.asarray(hier.mask))
-        m = np.asarray(flat.mask)
-        np.testing.assert_allclose(np.asarray(flat.t)[m],
-                                   np.asarray(hier.t)[m],
-                                   rtol=1e-4, atol=1e-5)
 
 
 class TestRenderBackendEquivalence:
@@ -385,42 +406,6 @@ class TestRenderBackendEquivalence:
         # tracks the largest gradient entries.
         np.testing.assert_allclose(gm, gb, rtol=1e-3,
                                    atol=3e-6 * np.abs(gb).max())
-
-
-class TestWeightStreaming:
-    """The beyond-VMEM mechanism: forcing the double-buffered HBM weight
-    streaming path (normally taken only when the weight tensor exceeds
-    _RESIDENT_W_BYTES) must produce a pixel-identical image to the
-    VMEM-resident kernel."""
-
-    def test_streamed_matches_resident(self, bunny, monkeypatch):
-        import numpy as np
-
-        from ceres_tpu.ops import megakernel as mk
-        from ceres_tpu.render.renderer import RenderConfig, render
-        from ceres_tpu.render import scenes
-
-        scene = scenes.bunny_scene()
-        cfg = RenderConfig(width=48, height=48, mode="smooth",
-                           backend="megakernel")
-        ref, ref_stats = render(scene.vertices, scene.faces, scene.camera,
-                                scene.sun, config=cfg)
-        ref = np.asarray(ref)
-        # Force every wavefront onto the streaming kernel.
-        monkeypatch.setattr(mk, "_RESIDENT_W_BYTES", 0)
-        import jax
-
-        jax.clear_caches()  # jit keys don't see module globals: force retrace
-        try:
-            img, stats = render(scene.vertices, scene.faces, scene.camera,
-                                scene.sun, config=cfg)
-            img = np.asarray(img)
-            hits = int(stats["hits"])
-        finally:
-            monkeypatch.undo()
-            jax.clear_caches()  # drop executables traced with streaming on
-        np.testing.assert_array_equal(img, ref)
-        assert hits == int(ref_stats["hits"])
 
 
 class TestPruneExitCidBits:
@@ -502,42 +487,11 @@ class TestPruneExitCidBits:
 
         pidx, steps = mk._walk_pallas(
             jnp.asarray(counts), jnp.asarray(keys), feats, w,
-            tcap_col=4, mode="closest", stream=False, interpret=True)
+            K=4, mode="closest", interpret=True)
         pidx = np.asarray(pidx)
         assert pidx[0] == 0                       # cluster 0, slot 0
         assert pidx[1] == cid_b * C + 0           # the near-tie candidate
-        assert int(np.asarray(steps)[0, 0]) == 2  # both candidates visited
-
-
-class TestShadowRegroup:
-    """Receiver-morton regrouping of the any_dest wavefront must be an
-    exact no-op on the RESULT (only the tile grouping changes)."""
-
-    def test_regrouped_matches_plain(self, rng):
-        soup = _random_scene(rng, V=200, F=400)
-        R = 700
-        points = jnp.asarray(
-            rng.standard_normal((R, 3)).astype(np.float32) * 0.2)
-        skip = jnp.asarray(rng.random(R) < 0.3)
-        dest = jnp.asarray([30.0, 45.0, -20.0], jnp.float32)
-        plain = np.asarray(mk.any_hit_to_point(soup, dest, points,
-                                               skip=skip, regroup=False))
-        grouped = np.asarray(mk.any_hit_to_point(soup, dest, points,
-                                                 skip=skip, regroup=True))
-        np.testing.assert_array_equal(plain, grouped)
-
-    def test_regrouped_hier_matches(self, rng, monkeypatch):
-        monkeypatch.setattr(mk, "_HIER_MIN_CLUSTERS", 1)
-        soup = _random_scene(rng, V=200, F=400)
-        R = 500
-        points = jnp.asarray(
-            rng.standard_normal((R, 3)).astype(np.float32) * 0.2)
-        dest = jnp.asarray([30.0, 45.0, -20.0], jnp.float32)
-        # auto mode now engages regroup (hier threshold crossed).
-        auto = np.asarray(mk.any_hit_to_point(soup, dest, points))
-        plain = np.asarray(mk.any_hit_to_point(soup, dest, points,
-                                               regroup=False))
-        np.testing.assert_array_equal(auto, plain)
+        assert int(np.asarray(steps).sum()) == 2  # both candidates visited
 
 
 def test_prebuilt_winner_table_matches(bunny):

@@ -11,7 +11,7 @@ from ceres_tpu.utils import golden
 
 
 def _compare_images(ours: np.ndarray, gold: np.ndarray, pixel_budget=0.01, tol=2e-3):
-    """f32 TPU-form render vs f64 oracle: identical up to a small silhouette
+    """f32 render vs f64 oracle: identical up to a small silhouette
     budget (pixels whose hit classification flips at triangle edges)."""
     diff = np.abs(ours - gold).max(axis=-1)
     bad = (diff > tol).mean()
